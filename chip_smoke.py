@@ -8,22 +8,37 @@ Run from the repository root:
 Phases; any failure raises, and the script exits non-zero:
 
 1. require CUDA; print the device and nvidia-smi's name and power limit;
-2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
-3. kernel 1 (geodesic weights) against its plain PyTorch version: radius 2
-   at 384x512, radius 5 at 64x80, max |diff| <= 2e-5; CUDA-event times;
+2. build the four CUDA kernels from csrc/ (one nvcc per source, in
+   parallel);
+3. kernel 1 (geodesic weights) against its plain PyTorch version at
+   384x512, radius 2 (the MVS path) and radius 5 (the two-view path),
+   max |diff| <= 2e-5; CUDA-event times;
 4. kernel 2 (MVS sweep) against its plain version on one view at 384x512,
    100 labels, 3 neighbours: best_depth agrees on >= 99.9% of pixels,
    |best_ncc diff| <= 1e-5 where both are finite, oob_frac == 0; times;
-5. the main path (the ``cli stereo`` library calls): mvs_depth_maps ->
+5. the MVS main path (the ``cli stereo`` library calls): mvs_depth_maps ->
    depth_maps_to_ply -> write_ply on an 8-view refractive rig rendered
    analytically in numpy at 384x512 (K sized for 768x1024, image_scale 0.5),
-   100 labels, radius 2, <= 3 neighbours, cross-check 0.5.  Both kernels
+   100 labels, radius 2, <= 3 neighbours, cross-check 0.5.  Kernels 1 and 2
    must launch; depths are held against the analytic depth;
-6. a breakdown of a second main-path run: each stage of mvs_depth_maps and
-   the PLY on the host clock, and the device's busy time by kernel from
+6. a breakdown of a second MVS run: each stage of mvs_depth_maps and the
+   PLY on the host clock, and the device's busy time by kernel from
    torch.profiler;
-7. print the kernel table as one JSON line, then the result line
-   {"ok": true, "device": {...}} last.
+7. kernel 3 (bilinear warp) against its plain version on view 0's two-view
+   coordinate volume (384x512, 100 labels): warped values bit-equal, the
+   same validity, oob_frac == 0; times;
+8. kernel 4 (two-view cost + WTA) against its plain version (fast_cost_plane
+   and the WTA carry) on kernel 3's warp volume, radius 5, 100 labels:
+   best depth equal on >= 99.9% of pixels, |min-cost diff| <= 1e-4, the
+   same +inf pixels; times;
+9. the two-view main path (the ``cli stereo --two-view`` library call):
+   compute_depth_maps(method="kernel") with the cross-check on views 0 and
+   1 of the rig, TwoViewConfig defaults (radius 5, 100 labels t/(5-4t)
+   over 40..90, second best 0.95, inconsistency 1.0).  Kernels 1, 3 and 4
+   must launch; depths are held against the analytic depth;
+10. a breakdown of a second two-view run, as in phase 6;
+11. print the kernel table as one JSON line, then the result line
+    {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
@@ -50,6 +65,9 @@ REFR_INDEX, PORT_DIST = 1.333, 2.0
 MIN_DEPTH, MAX_DEPTH, N_LABELS = 40.0, 90.0, 100
 CROSS_CHECK = 0.5
 TEXTURE_SCALE = 6.0      # texture frequency x6: structure at the 5x5 window
+# the two-view main path's least share of pixels with a depth after the
+# cross-check (views 0 and 1 overlap on ~80% of the image)
+TWO_VIEW_MIN_COVERAGE = 0.5
 
 
 # --------------------------------------------------------------------------
@@ -206,33 +224,38 @@ def sweep_counts(inputs, nbr_valid, radius):
 # --------------------------------------------------------------------------
 
 def check_weights(device, rgb, reps):
-    """Kernel 1 against its plain version; returns its table row."""
+    """Kernel 1 against its plain version at both radii of the main paths;
+    returns its table row (times at radius 2, the MVS path's; radius 5 is
+    printed)."""
     from stereoreconstruction_tpu_torch.ops.cuda_weights import (
         cuda_geodesic_weights)
     from stereoreconstruction_tpu_torch.ops.weights import geodesic_weights
 
     err = 0.0
-    rng = np.random.default_rng(5)
-    small = torch.as_tensor(rng.uniform(0, 255, (64, 80, 3)),
-                            dtype=torch.float32, device=device)
-    for img, radius in ((rgb, 2), (small, 5)):
-        got = cuda_geodesic_weights(img, radius)
-        want = geodesic_weights(img, radius, exact=False)
+    h, w = rgb.shape[:2]
+    for radius in (2, 5):
+        got = cuda_geodesic_weights(rgb, radius)
+        want = geodesic_weights(rgb, radius, exact=False)
         e = float((got - want).abs().max())
-        print(f"weights r={radius} {tuple(img.shape[:2])}: max |kernel - "
-              f"plain| = {e:.3e}")
+        print(f"weights r={radius} {h}x{w}: max |kernel - plain| = {e:.3e}")
         if not e <= 2e-5:
             raise AssertionError(f"geodesic weights r={radius} disagree: {e}")
         err = max(err, e)
 
-    h, w = rgb.shape[:2]
-    ms = cuda_ms(lambda: cuda_geodesic_weights(rgb, 2), reps, device)
-    plain_ms = cuda_ms(lambda: geodesic_weights(rgb, 2, exact=False),
-                       reps, device)
-    bound_ms, by = bound(rgb.numel() * 4 + 25 * h * w * 4,
-                         geodesic_ops(2) * h * w)
-    print(f"weights r=2 {h}x{w}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-          f" bound {bound_ms:.4f} ms ({by})")
+    row = None
+    for radius in (2, 5):
+        size = 2 * radius + 1
+        ms = cuda_ms(lambda: cuda_geodesic_weights(rgb, radius), reps,
+                     device)
+        plain_ms = cuda_ms(lambda: geodesic_weights(rgb, radius,
+                                                    exact=False),
+                           reps, device)
+        bound_ms, by = bound(rgb.numel() * 4 + size * size * h * w * 4,
+                             geodesic_ops(radius) * h * w)
+        print(f"weights r={radius} {h}x{w}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
+        row = row or (ms, plain_ms, bound_ms, by)
+    ms, plain_ms, bound_ms, by = row
     return dict(name="geodesic_weights", route="cuda",
                 source="stereoreconstruction_tpu_torch/csrc/"
                        "geodesic_weights.cu",
@@ -347,21 +370,13 @@ def main_path(device, rig, true_depth, outdir):
     return launches
 
 
-def profile_main_path(device, rig, outdir):
-    """Where the main path's time goes: its stages, called as mvs_depth_maps
-    and ``cli stereo`` call them, each timed on the host clock between
-    synchronizes, and device time by kernel from torch.profiler."""
+def profiled(device, title, body):
+    """Run ``body(timed)`` under torch.profiler, where ``timed(name, fn)``
+    calls ``fn`` between synchronizes and adds its host-clock time to stage
+    ``name``; print the stages and the device's busy time by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from stereoreconstruction_tpu_torch.data.ply import write_ply
-    from stereoreconstruction_tpu_torch.geometry.camera import camera_at
-    from stereoreconstruction_tpu_torch.ops.cuda_mvs import cuda_mvs_wta
-    from stereoreconstruction_tpu_torch.stereo.multiview import (
-        depth_maps_to_ply, mvs_cross_check_all, mvs_finalize_wta,
-        mvs_kernel_inputs, mvs_prepare_batched)
-
-    cams, cfg, rgbs, masks = rig
     stages = {}
 
     def timed(name, fn):
@@ -375,7 +390,39 @@ def profile_main_path(device, rig, outdir):
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize(device)
         t0 = time.perf_counter()
+        body(timed)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+
+    print(f"profile {title}: {wall:.3f} s on the host clock")
+    for name, sec in stages.items():
+        print(f"profile:   {name:28s} {sec:8.3f} s  {100 * sec / wall:5.1f}%")
+    # device-side rows of the stage annotations span kernels: leave them out
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.key not in stages]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    print(f"profile: device busy {busy:.3f} s = {100 * busy / wall:.1f}% of "
+          f"the wall; {sum(e.count for e in kernels)} kernel launches")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"profile:   {e.self_device_time_total / 1e3:9.2f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
+
+
+def profile_main_path(device, rig, outdir):
+    """Where the MVS main path's time goes: its stages, called as
+    mvs_depth_maps and ``cli stereo`` call them."""
+    from stereoreconstruction_tpu_torch.data.ply import write_ply
+    from stereoreconstruction_tpu_torch.geometry.camera import camera_at
+    from stereoreconstruction_tpu_torch.ops.cuda_mvs import cuda_mvs_wta
+    from stereoreconstruction_tpu_torch.stereo.multiview import (
+        depth_maps_to_ply, mvs_cross_check_all, mvs_finalize_wta,
+        mvs_kernel_inputs, mvs_prepare_batched)
+
+    cams, cfg, rgbs, masks = rig
+
+    def body(timed):
         cams_all, cams_nbr, nbr_idx, nbr_valid, refr, dist = timed(
             "host prep", lambda: mvs_prepare_batched(cams, cfg,
                                                      torch.float32, device))
@@ -403,20 +450,260 @@ def profile_main_path(device, rig, outdir):
             depth_maps_to_ply(depths, rgbs, cams, cfg, device=device)))
         timed("write_ply (ASCII)", lambda: write_ply(
             os.path.join(outdir, "profile.ply"), pts, cols))
-        wall = time.perf_counter() - t0
 
-    print(f"profile: main path {wall:.3f} s on the host clock")
-    for name, sec in stages.items():
-        print(f"profile:   {name:28s} {sec:8.3f} s  {100 * sec / wall:5.1f}%")
-    # device-side rows of the stage annotations span kernels: leave them out
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.key not in stages]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e6
-    print(f"profile: device busy {busy:.3f} s = {100 * busy / wall:.1f}% of "
-          f"the wall; {sum(e.count for e in kernels)} kernel launches")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"profile:   {e.self_device_time_total / 1e3:9.2f} ms "
-              f"{e.count:6d}x  {e.key[:90]}")
+    profiled(device, "MVS main path", body)
+
+
+# --------------------------------------------------------------------------
+# The two-view path (cli stereo --two-view)
+# --------------------------------------------------------------------------
+
+def twoview_step(cfg):
+    """The label spacing around the plane's depth (labels t/(5-4t))."""
+    t = np.arange(cfg.num_depth_levels) / (cfg.num_depth_levels - 1.0)
+    t = t / (5.0 - 4.0 * t)
+    labels = cfg.min_depth * (1.0 - t) + cfg.max_depth * t
+    k = int(np.searchsorted(labels, TARGET_Z))
+    return float(labels[k] - labels[k - 1])
+
+
+def twoview_inputs(device, rig2):
+    """View 0's kernel inputs on the two-view main path: kernel 1's weights,
+    the coordinate volume against view 1 and the left validity."""
+    from stereoreconstruction_tpu_torch.ops.cuda_weights import (
+        cuda_geodesic_weights)
+    from stereoreconstruction_tpu_torch.ops.sampling import sample_valid
+    from stereoreconstruction_tpu_torch.stereo.twoview import twoview_coords
+
+    cams, cfg, rgbs, masks = rig2
+    rgbs = torch.as_tensor(rgbs, dtype=torch.float32, device=device)
+    masks = torch.as_tensor(masks, device=device)
+    grays = 0.11 * rgbs[..., 0] + 0.59 * rgbs[..., 1] + 0.3 * rgbs[..., 2]
+    h, w = grays.shape[1:]
+    c0, c1 = (c.to(device, torch.float32) for c in cams)
+    depths, coords = twoview_coords(c0, c1, cfg, h, w,
+                                    enable_refraction=True,
+                                    enable_distortion=False)
+    return dict(depths=depths, coords=coords, gray_ref=grays[0],
+                gray_oth=grays[1].contiguous(), mask_oth=masks[1],
+                left_valid=masks[0] & sample_valid(h, w, device),
+                weights=cuda_geodesic_weights(rgbs[0].contiguous(),
+                                              cfg.window_radius))
+
+
+def check_warp(device, tv, reps, plain_reps):
+    """Kernel 3 against its plain version; returns its table row and the
+    warp volume."""
+    from stereoreconstruction_tpu_torch.ops.cuda_warp import (
+        cuda_warp_bilinear)
+    from stereoreconstruction_tpu_torch.ops.warp import warp_bilinear
+
+    coords, gray, mask = tv["coords"], tv["gray_oth"], tv["mask_oth"]
+    w_k, v_k, oob = cuda_warp_bilinear(coords, gray, mask)
+    w_p, v_p = warp_bilinear(coords, gray, mask)
+    same_valid = bool(torch.equal(v_k, v_p))
+    err = float((w_k - w_p).abs().max())
+    n_valid = int(v_k.sum())
+    print(f"warp view 0 {tuple(w_k.shape)}: warped max |kernel - plain| = "
+          f"{err:.3e}, validity equal {same_valid} ({n_valid} valid), "
+          f"oob_frac {float(oob)}")
+    if not (same_valid and err == 0.0 and float(oob) == 0.0 and n_valid):
+        raise AssertionError("warp kernel disagrees with its plain version")
+
+    ms = cuda_ms(lambda: cuda_warp_bilinear(coords, gray, mask), reps, device)
+    plain_ms = cuda_ms(lambda: warp_bilinear(coords, gray, mask), plain_reps,
+                       device)
+    hs, ws = gray.shape
+    x2, y2 = coords[:, 0], coords[:, 1]
+    n_samp = int(((x2 >= 0) & (y2 >= 0) & (x2 + 1 < ws)
+                  & (y2 + 1 < hs)).sum())
+    n_bytes = coords.numel() * 4 + hs * ws * 5 + w_k.numel() * 5
+    # a sample()-valid position: 4 triangle weights (3 each), 8 x-products
+    # and 4 adds, 4 y-products and 2 adds, 1 compare
+    bound_ms, by = bound(n_bytes, 31 * n_samp)
+    print(f"warp: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({by}; {n_bytes / 1e6:.1f} MB, {n_samp} "
+          f"sample-valid positions)")
+    row = dict(name="warp_bilinear", route="cuda",
+               source="stereoreconstruction_tpu_torch/csrc/warp_bilinear.cu",
+               replaces="stereoreconstruction_tpu/ops/pallas_warp.py:182",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=by, library_ms=None)
+    return row, w_k, v_k
+
+
+def cost_counts(left_valid, weights, wvalid, radius):
+    """(evaluated taps, evaluated units) of the cost kernel on these
+    inputs: a unit is a (pixel, label) whose own warp sample is valid; a
+    tap of a unit is evaluated when its left validity, weight > 1e-10 and
+    warp validity hold."""
+    size = 2 * radius + 1
+    n, h, w = wvalid.shape
+    pad = (radius,) * 4
+    lpad = torch.nn.functional.pad(left_valid[None], pad, value=False)[0]
+    vpad = torch.nn.functional.pad(wvalid, pad, value=False)
+    taps = 0
+    for s in range(size):
+        for t in range(size):
+            left = lpad[s:s + h, t:t + w] & (weights[s, t] > 1e-10)
+            taps += int((left & vpad[:, s:s + h, t:t + w] & wvalid).sum())
+    return taps, int(wvalid.sum())
+
+
+def check_cost(device, tv, warped, wvalid, cfg, reps, plain_reps):
+    """Kernel 4 against its plain version; returns its table row."""
+    from stereoreconstruction_tpu_torch.ops.cuda_cost_wta import (
+        cost_wta_plain, cuda_cost_wta)
+
+    args = (tv["depths"], warped, wvalid, tv["gray_ref"], tv["left_valid"],
+            tv["weights"])
+    kw = dict(radius=cfg.window_radius, max_color_diff=cfg.max_color_diff,
+              bad_ret=cfg.bad_ret)
+    mc_k, sec_k, best_k = cuda_cost_wta(*args, **kw)
+    mc_p, sec_p, best_p = cost_wta_plain(*args, **kw)
+    agree = float(((best_k == best_p)
+                   | (torch.isnan(best_k) & torch.isnan(best_p)))
+                  .float().mean())
+    fin = torch.isfinite(mc_p)
+    same_inf = bool(torch.equal(torch.isinf(mc_k), torch.isinf(mc_p))
+                    and torch.equal(torch.isinf(sec_k), torch.isinf(sec_p)))
+    err = float((mc_k - mc_p)[fin].abs().max()) if bool(fin.any()) else 0.0
+    print(f"cost view 0 D={warped.shape[0]} r={cfg.window_radius}: best "
+          f"depth agrees on {agree:.6f}, max |min-cost diff| {err:.3e}, "
+          f"{int(fin.sum())} finite, +inf pixels equal {same_inf}")
+    if not (agree >= 0.999 and err <= 1e-4 and same_inf):
+        raise AssertionError("cost kernel disagrees with its plain version")
+
+    ms = cuda_ms(lambda: cuda_cost_wta(*args, **kw), reps, device)
+    plain_ms = cuda_ms(lambda: cost_wta_plain(*args, **kw), plain_reps,
+                       device)
+    taps, units = cost_counts(tv["left_valid"], tv["weights"], wvalid,
+                              cfg.window_radius)
+    n_bytes = (sum(t.numel() * t.element_size() for t in args)
+               + 3 * mc_k.numel() * 4)
+    # 12 float32 operations a tap (2 products, 3 squares / cross products,
+    # 7 adds) and ~30 a unit (means, the three sums, sqrt, the cost, WTA)
+    bound_ms, by = bound(n_bytes, 12 * taps + 30 * units)
+    print(f"cost: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({by}; {n_bytes / 1e6:.1f} MB, {taps} taps, "
+          f"{units} units)")
+    return dict(name="cost_wta", route="cuda",
+                source="stereoreconstruction_tpu_torch/csrc/cost_wta.cu",
+                replaces="stereoreconstruction_tpu/ops/pallas_ncc.py:158",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=by, library_ms=None)
+
+
+TWO_VIEW_KERNELS = ("geodesic_weights", "warp_bilinear", "cost_wta")
+
+
+def twoview_counters():
+    from stereoreconstruction_tpu_torch.ops.cuda_cost_wta import (
+        cuda_cost_wta)
+    from stereoreconstruction_tpu_torch.ops.cuda_warp import (
+        cuda_warp_bilinear)
+    from stereoreconstruction_tpu_torch.ops.cuda_weights import (
+        cuda_geodesic_weights)
+    return dict(zip(TWO_VIEW_KERNELS, (cuda_geodesic_weights,
+                                       cuda_warp_bilinear, cuda_cost_wta)))
+
+
+def twoview_main_path(device, rig2, true_depth):
+    """compute_depth_maps(method="kernel") with the cross-check, as
+    ``cli stereo --two-view`` calls it; returns each kernel's launches."""
+    from stereoreconstruction_tpu_torch.stereo.twoview import (
+        compute_depth_maps)
+
+    cams, cfg, rgbs, masks = rig2
+    counters = twoview_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    res = compute_depth_maps(rgbs[0], masks[0], rgbs[1], masks[1], cams[0],
+                             cams[1], cfg, method="kernel", device=device)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+
+    step = twoview_step(cfg)
+    print(f"two-view main path: {wall:.3f} s for both views "
+          f"{tuple(res.depth_left.shape)} with the cross-check; launches "
+          f"{launches}")
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"a kernel did not launch on the two-view main "
+                             f"path: {launches}")
+    for side, d, truth in zip(("left", "right"), res, true_depth):
+        d = d.cpu().numpy()
+        if d.shape != truth.shape:
+            raise AssertionError(f"depth map {d.shape} != {truth.shape}")
+        ok = np.isfinite(d) & (d > 0)
+        coverage = float(ok.mean())
+        err = np.abs(d - truth)[ok]
+        med = float(np.median(err)) if err.size else float("inf")
+        print(f"  {side}: coverage {coverage:.4f}, median |depth error| "
+              f"{med:.4f} (label step at z={TARGET_Z}: {step:.4f}), "
+              f"{int(np.isinf(d).sum())} rejected (+inf)")
+        # every survivor passed the 0.95 second-best test and the symmetric
+        # cross-check at 1.0: on an exactly photoconsistent textured plane
+        # the median survivor sits within one label of the truth
+        if not (med <= step and coverage >= TWO_VIEW_MIN_COVERAGE):
+            raise AssertionError(f"two-view {side} depth map fails the "
+                                 "analytic check")
+    return launches
+
+
+def profile_twoview(device, rig2):
+    """Where the two-view main path's time goes: the stages of
+    compute_depth_maps(method="kernel"), called as it calls them."""
+    from stereoreconstruction_tpu_torch.ops.cuda_cost_wta import (
+        cuda_cost_wta)
+    from stereoreconstruction_tpu_torch.ops.cuda_warp import (
+        cuda_warp_bilinear)
+    from stereoreconstruction_tpu_torch.ops.sampling import sample_valid
+    from stereoreconstruction_tpu_torch.ops.weights import compute_weights
+    from stereoreconstruction_tpu_torch.stereo.multiview import (
+        _host_refractive)
+    from stereoreconstruction_tpu_torch.stereo.twoview import (
+        cross_check_pair, twoview_coords)
+
+    cams, cfg, rgbs, masks = rig2
+
+    def body(timed):
+        cams_t = timed("host prep", lambda: [
+            c.to(device, torch.float32) for c in cams])
+        refr = any(_host_refractive(c) for c in cams_t)
+        rgbs_t = torch.as_tensor(rgbs, dtype=torch.float32, device=device)
+        masks_t = torch.as_tensor(masks, device=device)
+        grays = (0.11 * rgbs_t[..., 0] + 0.59 * rgbs_t[..., 1]
+                 + 0.3 * rgbs_t[..., 2])
+        h, w = grays.shape[1:]
+        depths = []
+        for ref, oth in ((0, 1), (1, 0)):
+            weights = timed("weights (kernel 1, r=5)", lambda: (
+                compute_weights(rgbs_t[ref], cfg.window_radius, cfg.weights,
+                                exact=False)))
+            labels, coords = timed("coordinate volume", lambda: (
+                twoview_coords(cams_t[ref], cams_t[oth], cfg, h, w,
+                               enable_refraction=refr,
+                               enable_distortion=False)))
+            warped, wvalid, _ = timed("warp kernel", lambda: (
+                cuda_warp_bilinear(coords, grays[oth].contiguous(),
+                                   masks_t[oth])))
+            mc, sec, best = timed("cost + WTA kernel", lambda: cuda_cost_wta(
+                labels, warped, wvalid, grays[ref].contiguous(),
+                masks_t[ref] & sample_valid(h, w, device), weights,
+                radius=cfg.window_radius, max_color_diff=cfg.max_color_diff,
+                bad_ret=cfg.bad_ret))
+            depths.append(timed("second-best + mask", lambda: torch.where(
+                masks_t[ref], torch.where(
+                    mc > cfg.second_best_factor * sec, torch.inf, best),
+                torch.nan)))
+        timed("cross-check", lambda: cross_check_pair(
+            depths[0], depths[1], cams_t[0], cams_t[1], cfg,
+            enable_refraction=refr, enable_distortion=False))
+
+    profiled(device, "two-view main path", body)
 
 
 def nvidia_smi_line():
@@ -430,7 +717,8 @@ def nvidia_smi_line():
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
-    from stereoreconstruction_tpu_torch.config import MultiViewConfig
+    from stereoreconstruction_tpu_torch.config import (MultiViewConfig,
+                                                       TwoViewConfig)
     from stereoreconstruction_tpu_torch.device import resolve_device
     from stereoreconstruction_tpu_torch.ops import cuda_build
 
@@ -445,7 +733,7 @@ def main():
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
     for src, log in cuda_build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {src}: {line.strip()}")
 
     t0 = time.perf_counter()
@@ -461,6 +749,10 @@ def main():
     print(f"rig rendered in {time.perf_counter() - t0:.1f} s: {N_VIEWS} "
           f"views {h}x{w}, depths {true_depth.min():.2f}..."
           f"{true_depth.max():.2f}")
+    # the two-view pair: views 0 and 1, TwoViewConfig defaults otherwise
+    cfg2 = TwoViewConfig(min_depth=MIN_DEPTH, max_depth=MAX_DEPTH,
+                         num_depth_levels=N_LABELS, image_scale=SCALE)
+    rig2 = (rig[0][:2], cfg2, rig[2][:2], masks[:2])
 
     rows = [check_weights(device, torch.as_tensor(
         rig[2][0], device=device), reps=10),
@@ -468,8 +760,19 @@ def main():
     with tempfile.TemporaryDirectory() as outdir:
         launches = main_path(device, rig, true_depth, outdir)
         profile_main_path(device, rig, outdir)
+
+    tv = twoview_inputs(device, rig2)
+    warp_row, warped, wvalid = check_warp(device, tv, reps=10, plain_reps=3)
+    rows += [warp_row, check_cost(device, tv, warped, wvalid, cfg2, reps=10,
+                                  plain_reps=2)]
+    del tv, warped, wvalid
+    launches2 = twoview_main_path(device, rig2, true_depth[:2])
+    profile_twoview(device, rig2)
+
+    # launches: the sum over the two main paths' runs
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = (launches.get(row["name"], 0)
+                           + launches2.get(row["name"], 0))
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

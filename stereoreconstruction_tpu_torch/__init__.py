@@ -8,8 +8,9 @@ never JAX, and nothing of the JAX package.
 
 Precision follows the reference: cameras and host preparation in float64,
 the hot depth sweep in float32, point-cloud back-projection in float64.
-The two TPU kernels of the multi-view path are hand-written CUDA for Hopper
-(``csrc/``); each wrapper runs its plain PyTorch version on CPU tensors.
+The TPU kernels of the multi-view and two-view paths are hand-written CUDA
+for Hopper (``csrc/``); each wrapper runs its plain PyTorch version on CPU
+tensors.
 """
 
 __version__ = "0.1.0"

@@ -1,13 +1,18 @@
-"""Headless CLI of the PyTorch port: the ``info`` verb and the multi-view
-``stereo`` verb of the README workflow (project XML -> depth maps -> PLY).
+"""Headless CLI of the PyTorch port: the ``info`` verb and the ``stereo``
+verb of the README workflow (project XML -> depth maps -> PLY).
 
 Usage:
   python -m stereoreconstruction_tpu_torch.cli info   project.xml
   python -m stereoreconstruction_tpu_torch.cli stereo project.xml \
       --image-set bunny --min-depth 30 --max-depth 80 --cross-check 0.5 -o out/
+  python -m stereoreconstruction_tpu_torch.cli stereo project.xml \
+      --image-set bunny --min-depth 30 --max-depth 80 --two-view \
+      --save-npz out/depths.npz -o out/
 
-``stereo`` runs on CUDA unless ``--device`` names another device.  It writes
-``<image-set>.ply`` (and the raw maps with ``--save-npz``); the depth PNGs
+``stereo`` runs on CUDA unless ``--device`` names another device.  The
+multi-view engine writes ``<image-set>.ply``; ``--two-view`` runs the
+two-view engine on the first two cameras and, as in the JAX package's CLI,
+writes no PLY.  Both write the raw maps with ``--save-npz``; the depth PNGs
 and ``--trace`` of the JAX package's CLI are not ported yet.
 """
 
@@ -22,7 +27,6 @@ import numpy as np
 # Options of the JAX package's stereo verb that this port does not run yet,
 # with the part of the port that will bring each.
 _NOT_PORTED = (
-    ("two_view", "--two-view", "the two-view engine slice"),
     ("mrf", "--mrf", "the MRF slice"),
     ("resume", "--resume", "the runtime (checkpoint) slice"),
     ("shard", "--shard", "the multi-GPU sharding slice"),
@@ -53,12 +57,13 @@ def cmd_stereo(args):
                   f"{later} (ROADMAP.md)", file=sys.stderr)
             return 2
 
-    from .config import MultiViewConfig
+    from .config import MultiViewConfig, TwoViewConfig
     from .data.images import load_image
     from .data.ply import write_ply
     from .data.project_io import load_project
     from .device import resolve_device
     from .stereo.multiview import mvs_depth_maps, depth_maps_to_ply
+    from .stereo.twoview import compute_depth_maps
 
     device = resolve_device(args.device)
     proj = load_project(args.project)
@@ -72,25 +77,42 @@ def cmd_stereo(args):
     outdir = args.output or "."
     os.makedirs(outdir, exist_ok=True)
 
-    cfg = MultiViewConfig(min_depth=args.min_depth,
-                          max_depth=args.max_depth,
-                          num_depth_levels=args.depth_levels,
-                          cross_check_threshold=args.cross_check,
-                          image_scale=args.scale)
-    rgbs = np.stack([i.rgb for i in imgs])
-    depths = mvs_depth_maps(rgbs, np.stack([i.mask for i in imgs]), cams,
-                            cfg, method=args.method,
-                            device=device).cpu().numpy()
+    if args.two_view:
+        if len(imgs) < 2:
+            print("--two-view needs two cameras with images",
+                  file=sys.stderr)
+            return 2
+        cfg = TwoViewConfig(min_depth=args.min_depth,
+                            max_depth=args.max_depth,
+                            num_depth_levels=args.depth_levels,
+                            image_scale=args.scale)
+        res = compute_depth_maps(
+            imgs[0].rgb, imgs[0].mask, imgs[1].rgb, imgs[1].mask, cams[0],
+            cams[1], cfg, method=args.method, device=device)
+        depths = np.stack([res.depth_left.cpu().numpy(),
+                           res.depth_right.cpu().numpy()])
+    else:
+        cfg = MultiViewConfig(min_depth=args.min_depth,
+                              max_depth=args.max_depth,
+                              num_depth_levels=args.depth_levels,
+                              cross_check_threshold=args.cross_check,
+                              image_scale=args.scale)
+        depths = mvs_depth_maps(
+            np.stack([i.rgb for i in imgs]), np.stack([i.mask for i in imgs]),
+            cams, cfg, method=args.method, device=device).cpu().numpy()
 
     if args.save_npz:
         np.savez_compressed(args.save_npz, depths=depths,
-                            cam_ids=np.asarray(cam_ids))
+                            cam_ids=np.asarray(cam_ids[:len(depths)]))
         print(f"wrote raw depths to {args.save_npz}")
     for cid, d in zip(cam_ids, depths):
         have = np.isfinite(d) & (d > 0)
         print(f"{cid}: {100.0 * have.mean():.1f}% of pixels have depth "
               "hypotheses")
+    if args.two_view:
+        return 0
 
+    rgbs = np.stack([i.rgb for i in imgs])
     pts, cols = depth_maps_to_ply(depths, rgbs, cams, cfg, device=device)
     ply = os.path.join(outdir, f"{args.image_set}.ply")
     write_ply(ply, pts, cols)
@@ -127,7 +149,9 @@ def main(argv=None):
                          "[V, H, W] + cam_ids)")
     sp.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
-    sp.add_argument("--two-view", action="store_true")
+    sp.add_argument("--two-view", action="store_true",
+                    help="two-view engine on the first two cameras "
+                         "(depth maps only, no PLY)")
     sp.add_argument("--mrf", action="store_true")
     sp.add_argument("--resume", action="store_true")
     sp.add_argument("--shard", default=None)

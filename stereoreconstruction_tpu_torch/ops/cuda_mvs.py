@@ -65,7 +65,8 @@ def mvs_wta_plain(depths, coords, gray_nbr, gl, lv, weights, nbr_valid, *,
         xy = coords[d_idx - label0]                 # [N, 2, H, W]
         x2, y2 = xy[:, 0], xy[:, 1]
         taps, tap_valid = nearest_taps(gray_nbr, x2, y2, radius)
-        ncc = ncc_accumulate(gl, lv, weights, taps, tap_valid, x2 > -1e6)
+        ncc = ncc_accumulate(gl, lv, weights, taps, tap_valid, x2 > -1e6,
+                             mvs_mode=True)
         return torch.where(nbr_valid[:, None, None], ncc, -torch.inf)
 
     best_ncc, best_depth = mvs_wta_slab(plane_cost, depths, thr, (h, w),

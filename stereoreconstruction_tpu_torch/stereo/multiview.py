@@ -79,7 +79,7 @@ def resolve_mvs_method(method: str) -> str:
         return "kernel"
     if method == "exact":
         return "exact"
-    raise ValueError(f"unknown MVS method {method!r}")
+    raise ValueError(f"unknown stereo method {method!r}")
 
 
 def mvs_prepare_batched(cams: Sequence[Camera], cfg: MultiViewConfig,

@@ -1,16 +1,19 @@
 """The port's ``cli stereo`` on a synthetic refractive project with PNGs:
-project XML -> depth maps -> PLY on the CPU, checked against the library
-calls on the same inputs.  The PLY holds 6 significant digits (the
-reference's ``%g`` layout), hence rtol 1e-5 on the points."""
+project XML -> depth maps -> PLY (multi-view) or depth maps (``--two-view``)
+on the CPU, checked against the library calls on the same inputs.  The PLY
+holds 6 significant digits (the reference's ``%g`` layout), hence rtol 1e-5
+on the points."""
 
 import os
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from stereoreconstruction_tpu_torch import cli
-from stereoreconstruction_tpu_torch.config import MultiViewConfig
+from stereoreconstruction_tpu_torch.config import (MultiViewConfig,
+                                                   TwoViewConfig)
 from stereoreconstruction_tpu_torch.data.images import load_image
 from stereoreconstruction_tpu_torch.data.ply import read_ply
 from stereoreconstruction_tpu_torch.data.project_io import (
@@ -18,8 +21,11 @@ from stereoreconstruction_tpu_torch.data.project_io import (
     save_project)
 from stereoreconstruction_tpu_torch.stereo.multiview import (
     depth_maps_to_ply, mvs_depth_maps)
+from stereoreconstruction_tpu_torch.stereo.twoview import compute_depth_maps
 
 from synth import converging_rig, render_scene
+
+torch.set_num_threads(1)
 
 H, W = 64, 80
 ARGS = ["--image-set", "scene", "--scale", "0.5", "--depth-levels", "8",
@@ -77,7 +83,33 @@ def test_cli_stereo_writes_library_ply(project, capsys):
     np.testing.assert_array_equal(cols, want_cols.astype(int))
 
 
-@pytest.mark.parametrize("flag", [["--two-view"], ["--mrf"], ["--resume"],
+def test_cli_two_view_writes_library_depths(project, capsys):
+    """``stereo --two-view`` runs the two-view engine on the first two
+    cameras: the npz holds the library call's two maps, and no PLY."""
+    path = str(project / "p.xml")
+    out = project / "out2"
+    npz = str(project / "two.npz")
+    assert cli.main(["stereo", path, "-o", str(out), "--save-npz", npz]
+                    + ARGS + ["--two-view", "--depth-levels", "6"]) == 0
+    assert "cam1:" in capsys.readouterr().out
+    assert not os.path.exists(out / "scene.ply")
+
+    proj = load_project(path)
+    cams = [proj.cameras[c].to_camera() for c in ("cam0", "cam1")]
+    imgs = [load_image(str(project / f"c{i}.png"), 0.5) for i in range(2)]
+    cfg = TwoViewConfig(min_depth=40.0, max_depth=80.0, num_depth_levels=6,
+                        image_scale=0.5)
+    res = compute_depth_maps(imgs[0].rgb, imgs[0].mask, imgs[1].rgb,
+                             imgs[1].mask, cams[0], cams[1], cfg,
+                             device="cpu")
+    saved = np.load(npz)
+    np.testing.assert_array_equal(saved["cam_ids"], ["cam0", "cam1"])
+    want = np.stack([res.depth_left.numpy(), res.depth_right.numpy()])
+    np.testing.assert_array_equal(saved["depths"], want)
+    assert np.isfinite(want).mean() > 0.3
+
+
+@pytest.mark.parametrize("flag", [["--mrf"], ["--resume"],
                                   ["--shard", "depth"]])
 def test_cli_stereo_refuses_unported_options(project, capsys, flag):
     path = str(project / "p.xml")

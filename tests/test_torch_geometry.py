@@ -19,6 +19,8 @@ from stereoreconstruction_tpu_torch.geometry import camera as tcam
 from stereoreconstruction_tpu_torch.geometry import quartic as tquartic
 from stereoreconstruction_tpu_torch.geometry import rays as trays
 
+torch.set_num_threads(1)
+
 DTYPES = [(jnp.float64, torch.float64, 1e-9, 60),
           (jnp.float32, torch.float32, 1e-5, 30)]
 

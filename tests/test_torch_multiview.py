@@ -11,6 +11,7 @@ may flip); point clouds to 1e-6 (float64 back-projection on both sides).
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import torch
 
 from stereoreconstruction_tpu.config import MultiViewConfig as JConfig
 from stereoreconstruction_tpu.stereo import multiview as jmv
@@ -20,6 +21,8 @@ from stereoreconstruction_tpu_torch.stereo import multiview as tmv
 from synth import converging_rig, render_scene
 from test_multiview import make_rig
 from test_torch_mvs import depth_agreement, port_cameras
+
+torch.set_num_threads(1)
 
 RIG_KW = dict(min_depth=40.0, max_depth=90.0, num_depth_levels=8,
               image_scale=1.0, cross_check_threshold=3.0)

@@ -27,6 +27,8 @@ from stereoreconstruction_tpu_torch.stereo import multiview as tmv
 
 from test_multiview import make_rig, CFG
 
+torch.set_num_threads(1)
+
 
 def port_cameras(jax_cams, **kw):
     """The port's Cameras from JAX Cameras, leaf by leaf through numpy."""

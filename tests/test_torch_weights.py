@@ -19,6 +19,8 @@ from stereoreconstruction_tpu_torch.ops.cuda_weights import (
 from stereoreconstruction_tpu_torch.ops.weights import (
     compute_weights, geodesic_weights)
 
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("shape,radius", [
     ((16, 20, 3), 2),
