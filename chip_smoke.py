@@ -573,6 +573,22 @@ def check_cost(device, tv, warped, wvalid, cfg, reps, plain_reps):
           f"{int(fin.sum())} finite, +inf pixels equal {same_inf}")
     if not (agree >= 0.999 and err <= 1e-4 and same_inf):
         raise AssertionError("cost kernel disagrees with its plain version")
+    # the kernel's 32 x 4 pixel tiles end ragged at 61 x 83 (random inputs)
+    rng = np.random.default_rng(7)
+    size = 2 * cfg.window_radius + 1
+
+    def rand(shape, lo=0.0, hi=255.0):
+        return torch.as_tensor(rng.uniform(lo, hi, shape),
+                               dtype=torch.float32, device=device)
+
+    ragged = (torch.sort(rand((5,), 40.0, 90.0)).values, rand((5, 61, 83)),
+              rand((5, 61, 83), 0.0, 1.0) > 0.1, rand((61, 83)),
+              rand((61, 83), 0.0, 1.0) > 0.1, rand((size, size, 61, 83),
+                                                   0.0, 1.0))
+    for got, want in zip(cuda_cost_wta(*ragged, **kw),
+                         cost_wta_plain(*ragged, **kw)):
+        if not torch.equal(got.nan_to_num(), want.nan_to_num()):
+            raise AssertionError("cost kernel disagrees at a ragged edge")
 
     ms = cuda_ms(lambda: cuda_cost_wta(*args, **kw), reps, device)
     plain_ms = cuda_ms(lambda: cost_wta_plain(*args, **kw), plain_reps,
