@@ -27,7 +27,10 @@ def cost_wta_plain(depths, warped, wvalid, gray_ref, left_valid, weights, *,
     from ..stereo.twoview import _wta_scan
 
     h, w = gray_ref.shape
-    ref = make_ref_view(gray_ref, left_valid, weights, radius)
+    # left_valid already holds the sample() validity: taken as given, as the
+    # kernel takes it
+    ref = make_ref_view(gray_ref, left_valid, weights, radius,
+                        inb=torch.ones_like(left_valid))
 
     def cost_at(d_idx):
         cost = fast_cost_plane(ref, warped[d_idx], wvalid[d_idx],

@@ -39,14 +39,17 @@ class RefView(NamedTuple):
     radius: int
 
 
-def make_ref_view(gray_ref, mask_ref, weights, radius: int) -> RefView:
+def make_ref_view(gray_ref, mask_ref, weights, radius: int,
+                  inb=None) -> RefView:
+    """``inb`` overrides the sample()-validity plane of the left taps
+    (default: all pixels but the last row and column)."""
     pad = (radius,) * 4
-    h, w = gray_ref.shape
+    if inb is None:
+        inb = sample_valid(*gray_ref.shape, gray_ref.device)
     return RefView(
         gray_pad=F.pad(gray_ref[None], pad)[0],
         mask_pad=F.pad(mask_ref[None], pad, value=False)[0],
-        inb_pad=F.pad(sample_valid(h, w, gray_ref.device)[None], pad,
-                      value=False)[0],
+        inb_pad=F.pad(inb[None], pad, value=False)[0],
         weights=weights, radius=radius)
 
 

@@ -12,6 +12,9 @@
   XLA contracts a*b+c into FMAs (ROADMAP.md §C), PyTorch rounds each
   operation; on this fixture 0.5-0.8% of the costs differ, by at most
   3.1e-5;
+* the cost sweep's plain version against JAX ``fast_cost_plane`` and the
+  WTA update, with the left validity taken as given (as the cost kernel
+  and JAX ``pallas_cost_wta`` take it): same tolerance;
 * the kernel wrappers on CPU tensors: their plain versions, no launch.
 """
 
@@ -205,3 +208,39 @@ def test_wrappers_run_plain_versions_on_cpu(scene):
     assert bool((min_cost[won] <= second[won]).all())
     assert set(np.unique(best[won].numpy())) <= set(depths.tolist())
     assert bool(torch.isnan(best[~won]).all())
+
+
+def test_cost_sweep_takes_left_validity_as_given(scene):
+    """The cost kernel's plain version uses ``left_valid`` as given (the
+    caller folds in sample() validity), as JAX's ``pallas_cost_wta`` does:
+    held against JAX ``fast_cost_plane`` with ``inb`` all true and the WTA
+    update, with a left validity that keeps the last row and column."""
+    rgbs, masks, grays, coords = scene
+    weights = np.array(jgw(jnp.asarray(rgbs[0]), 3, exact=False))
+    depths = depth_labels_twoview(45.0, 80.0, coords.shape[0])
+    warped, wvalid = warp_bilinear(coords, torch.as_tensor(grays[1]),
+                                   torch.as_tensor(masks[1]))
+    got = cost_wta_plain(depths, warped, wvalid, torch.as_tensor(grays[0]),
+                         torch.as_tensor(masks[0]),
+                         torch.as_tensor(weights), radius=3)
+
+    jref = jnf.make_ref_view(jnp.asarray(grays[0]), jnp.asarray(masks[0]),
+                             jnp.asarray(weights), 3,
+                             inb=jnp.ones((H, W), bool))
+    min_cost = np.full((H, W), np.inf, np.float32)
+    best = np.full((H, W), np.nan, np.float32)
+    for d in range(coords.shape[0]):
+        cost = np.asarray(jnf.fast_cost_plane(
+            jref, jnp.asarray(warped[d].numpy()),
+            jnp.asarray(wvalid[d].numpy())))
+        better = cost + np.float32(1e-10) < min_cost
+        min_cost = np.where(better, cost, min_cost)
+        best = np.where(better, depths[d].numpy(), best)
+    np.testing.assert_array_equal(np.isinf(got[0].numpy()),
+                                  np.isinf(min_cost))
+    fin = np.isfinite(min_cost)
+    np.testing.assert_allclose(got[0].numpy()[fin], min_cost[fin], rtol=0,
+                               atol=1e-4)
+    same = (got[2].numpy() == best) | (np.isnan(got[2].numpy())
+                                       & np.isnan(best))
+    assert same.mean() >= 0.995
