@@ -36,8 +36,10 @@ Phases; any failure raises, and the script exits non-zero:
    1 of the rig, TwoViewConfig defaults (radius 5, 100 labels t/(5-4t)
    over 40..90, second best 0.95, inconsistency 1.0).  Kernels 1, 3 and 4
    must launch; depths are held against the analytic depth;
-10. a breakdown of a second two-view run, as in phase 6;
-11. print the kernel table as one JSON line, then the result line
+10. a breakdown of a second compute_depth_maps call, as in phase 6: its
+    stages timed by shims around the functions it calls;
+11. print the kernel table as one JSON line (kernel 1 has a row for each
+    radius, with that path's launches), then the result line
     {"ok": true, "device": {...}} last.
 """
 
@@ -223,27 +225,23 @@ def sweep_counts(inputs, nbr_valid, radius):
 # Phases
 # --------------------------------------------------------------------------
 
-def check_weights(device, rgb, reps):
-    """Kernel 1 against its plain version at both radii of the main paths;
-    returns its table row (times at radius 2, the MVS path's; radius 5 is
-    printed)."""
+def check_weights(device, rgb, radii, reps):
+    """Kernel 1 against its plain version at each radius of the main paths;
+    returns one table row a radius, {radius: row}."""
     from stereoreconstruction_tpu_torch.ops.cuda_weights import (
         cuda_geodesic_weights)
     from stereoreconstruction_tpu_torch.ops.weights import geodesic_weights
 
-    err = 0.0
     h, w = rgb.shape[:2]
-    for radius in (2, 5):
+    rows = {}
+    for radius in radii:
         got = cuda_geodesic_weights(rgb, radius)
         want = geodesic_weights(rgb, radius, exact=False)
-        e = float((got - want).abs().max())
-        print(f"weights r={radius} {h}x{w}: max |kernel - plain| = {e:.3e}")
-        if not e <= 2e-5:
-            raise AssertionError(f"geodesic weights r={radius} disagree: {e}")
-        err = max(err, e)
-
-    row = None
-    for radius in (2, 5):
+        err = float((got - want).abs().max())
+        print(f"weights r={radius} {h}x{w}: max |kernel - plain| = {err:.3e}")
+        if not err <= 2e-5:
+            raise AssertionError(f"geodesic weights r={radius} disagree: "
+                                 f"{err}")
         size = 2 * radius + 1
         ms = cuda_ms(lambda: cuda_geodesic_weights(rgb, radius), reps,
                      device)
@@ -254,14 +252,14 @@ def check_weights(device, rgb, reps):
                              geodesic_ops(radius) * h * w)
         print(f"weights r={radius} {h}x{w}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
-        row = row or (ms, plain_ms, bound_ms, by)
-    ms, plain_ms, bound_ms, by = row
-    return dict(name="geodesic_weights", route="cuda",
-                source="stereoreconstruction_tpu_torch/csrc/"
-                       "geodesic_weights.cu",
-                replaces="stereoreconstruction_tpu/ops/pallas_weights.py:166",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=by, library_ms=None)
+        rows[radius] = dict(
+            name=f"geodesic_weights_r{radius}", counter="geodesic_weights",
+            route="cuda",
+            source="stereoreconstruction_tpu_torch/csrc/geodesic_weights.cu",
+            replaces="stereoreconstruction_tpu/ops/pallas_weights.py:166",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=by, library_ms=None)
+    return rows
 
 
 def check_sweep(device, rig, reps, plain_reps):
@@ -311,7 +309,7 @@ def check_sweep(device, rig, reps, plain_reps):
     print(f"sweep: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({by}; {n_bytes / 1e6:.1f} MB, {taps} valid "
           f"taps, {units} units)")
-    return dict(name="mvs_sweep", route="cuda",
+    return dict(name="mvs_sweep", counter="mvs_sweep", route="cuda",
                 source="stereoreconstruction_tpu_torch/csrc/mvs_sweep.cu",
                 replaces="stereoreconstruction_tpu/ops/pallas_mvs.py:306",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -397,6 +395,7 @@ def profiled(device, title, body):
         wall = time.perf_counter() - t0
 
     print(f"profile {title}: {wall:.3f} s on the host clock")
+    stages["rest (untimed)"] = wall - sum(stages.values())
     for name, sec in stages.items():
         print(f"profile:   {name:28s} {sec:8.3f} s  {100 * sec / wall:5.1f}%")
     # device-side rows of the stage annotations span kernels: leave them out
@@ -524,7 +523,7 @@ def check_warp(device, tv, reps, plain_reps):
     print(f"warp: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({by}; {n_bytes / 1e6:.1f} MB, {n_samp} "
           f"sample-valid positions)")
-    row = dict(name="warp_bilinear", route="cuda",
+    row = dict(name="warp_bilinear", counter="warp_bilinear", route="cuda",
                source="stereoreconstruction_tpu_torch/csrc/warp_bilinear.cu",
                replaces="stereoreconstruction_tpu/ops/pallas_warp.py:182",
                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -603,7 +602,7 @@ def check_cost(device, tv, warped, wvalid, cfg, reps, plain_reps):
     print(f"cost: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({by}; {n_bytes / 1e6:.1f} MB, {taps} taps, "
           f"{units} units)")
-    return dict(name="cost_wta", route="cuda",
+    return dict(name="cost_wta", counter="cost_wta", route="cuda",
                 source="stereoreconstruction_tpu_torch/csrc/cost_wta.cu",
                 replaces="stereoreconstruction_tpu/ops/pallas_ncc.py:158",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -670,54 +669,32 @@ def twoview_main_path(device, rig2, true_depth):
 
 
 def profile_twoview(device, rig2):
-    """Where the two-view main path's time goes: the stages of
-    compute_depth_maps(method="kernel"), called as it calls them."""
-    from stereoreconstruction_tpu_torch.ops.cuda_cost_wta import (
-        cuda_cost_wta)
-    from stereoreconstruction_tpu_torch.ops.cuda_warp import (
-        cuda_warp_bilinear)
-    from stereoreconstruction_tpu_torch.ops.sampling import sample_valid
-    from stereoreconstruction_tpu_torch.ops.weights import compute_weights
-    from stereoreconstruction_tpu_torch.stereo.multiview import (
-        _host_refractive)
-    from stereoreconstruction_tpu_torch.stereo.twoview import (
-        cross_check_pair, twoview_coords)
+    """Where the two-view main path's time goes: one
+    compute_depth_maps(method="kernel") call, each stage timed by a shim
+    around the module-level function of stereo/twoview.py that runs it."""
+    from stereoreconstruction_tpu_torch.stereo import twoview
 
     cams, cfg, rgbs, masks = rig2
+    stages = {"compute_weights": f"weights (kernel 1, r={cfg.window_radius})",
+              "twoview_coords": "coordinate volume",
+              "cuda_warp_bilinear": "warp kernel",
+              "cuda_cost_wta": "cost + WTA kernel",
+              "cross_check_pair": "cross-check"}
+    originals = {f: getattr(twoview, f) for f in stages}
 
     def body(timed):
-        cams_t = timed("host prep", lambda: [
-            c.to(device, torch.float32) for c in cams])
-        refr = any(_host_refractive(c) for c in cams_t)
-        rgbs_t = torch.as_tensor(rgbs, dtype=torch.float32, device=device)
-        masks_t = torch.as_tensor(masks, device=device)
-        grays = (0.11 * rgbs_t[..., 0] + 0.59 * rgbs_t[..., 1]
-                 + 0.3 * rgbs_t[..., 2])
-        h, w = grays.shape[1:]
-        depths = []
-        for ref, oth in ((0, 1), (1, 0)):
-            weights = timed("weights (kernel 1, r=5)", lambda: (
-                compute_weights(rgbs_t[ref], cfg.window_radius, cfg.weights,
-                                exact=False)))
-            labels, coords = timed("coordinate volume", lambda: (
-                twoview_coords(cams_t[ref], cams_t[oth], cfg, h, w,
-                               enable_refraction=refr,
-                               enable_distortion=False)))
-            warped, wvalid, _ = timed("warp kernel", lambda: (
-                cuda_warp_bilinear(coords, grays[oth].contiguous(),
-                                   masks_t[oth])))
-            mc, sec, best = timed("cost + WTA kernel", lambda: cuda_cost_wta(
-                labels, warped, wvalid, grays[ref].contiguous(),
-                masks_t[ref] & sample_valid(h, w, device), weights,
-                radius=cfg.window_radius, max_color_diff=cfg.max_color_diff,
-                bad_ret=cfg.bad_ret))
-            depths.append(timed("second-best + mask", lambda: torch.where(
-                masks_t[ref], torch.where(
-                    mc > cfg.second_best_factor * sec, torch.inf, best),
-                torch.nan)))
-        timed("cross-check", lambda: cross_check_pair(
-            depths[0], depths[1], cams_t[0], cams_t[1], cfg,
-            enable_refraction=refr, enable_distortion=False))
+        def shim(f):
+            return lambda *a, **kw: timed(stages[f],
+                                          lambda: originals[f](*a, **kw))
+        try:
+            for f in stages:
+                setattr(twoview, f, shim(f))
+            twoview.compute_depth_maps(
+                rgbs[0], masks[0], rgbs[1], masks[1], cams[0], cams[1], cfg,
+                method="kernel", device=device)
+        finally:
+            for f, fn in originals.items():
+                setattr(twoview, f, fn)
 
     profiled(device, "two-view main path", body)
 
@@ -770,25 +747,30 @@ def main():
                          num_depth_levels=N_LABELS, image_scale=SCALE)
     rig2 = (rig[0][:2], cfg2, rig[2][:2], masks[:2])
 
-    rows = [check_weights(device, torch.as_tensor(
-        rig[2][0], device=device), reps=10),
-        check_sweep(device, rig, reps=10, plain_reps=3)]
+    weight_rows = check_weights(
+        device, torch.as_tensor(rig[2][0], device=device),
+        (cfg.window_radius, cfg2.window_radius), reps=10)
+    mvs_rows = [weight_rows[cfg.window_radius],
+                check_sweep(device, rig, reps=10, plain_reps=3)]
     with tempfile.TemporaryDirectory() as outdir:
         launches = main_path(device, rig, true_depth, outdir)
         profile_main_path(device, rig, outdir)
 
     tv = twoview_inputs(device, rig2)
     warp_row, warped, wvalid = check_warp(device, tv, reps=10, plain_reps=3)
-    rows += [warp_row, check_cost(device, tv, warped, wvalid, cfg2, reps=10,
-                                  plain_reps=2)]
+    tv_rows = [weight_rows[cfg2.window_radius], warp_row,
+               check_cost(device, tv, warped, wvalid, cfg2, reps=10,
+                          plain_reps=2)]
     del tv, warped, wvalid
     launches2 = twoview_main_path(device, rig2, true_depth[:2])
     profile_twoview(device, rig2)
 
-    # launches: the sum over the two main paths' runs
-    for row in rows:
-        row["launches"] = (launches.get(row["name"], 0)
-                           + launches2.get(row["name"], 0))
+    # a row's launches are its path's run's: each path runs kernel 1 at its
+    # config's one radius, so its kernel-1 launches are that radius's row's
+    for rows, counts in ((mvs_rows, launches), (tv_rows, launches2)):
+        for row in rows:
+            row["launches"] = counts[row["counter"]]
+    rows = mvs_rows + tv_rows
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

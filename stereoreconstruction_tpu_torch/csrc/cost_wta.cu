@@ -3,7 +3,7 @@
 // Replaces the TPU kernel stereoreconstruction_tpu/ops/pallas_ncc.py
 // (pallas_cost_wta -> _cost_kernel).  Same function as its plain PyTorch
 // version, ops/cuda_cost_wta.py cost_wta_plain (ops/ncc_fast.py
-// fast_cost_plane + the WTA carry of stereo/twoview.py _wta_scan): for every
+// fast_cost_plane + the WTA carry wta_scan): for every
 // reference pixel and depth label, the (2r+1)^2-tap weighted NCC between the
 // reference gray and the warped plane of the other view, taken in reference
 // space (taps are shifts of the warped plane), turned into the two-view cost

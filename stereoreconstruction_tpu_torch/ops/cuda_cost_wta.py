@@ -3,8 +3,8 @@
 Replaces the TPU kernel ``stereoreconstruction_tpu/ops/pallas_ncc.py``
 (``pallas_cost_wta``).  ``cost_wta_plain`` is the plain PyTorch version:
 ``ops/ncc_fast.py fast_cost_plane`` on each depth's warped plane and the
-sequential WTA carry of ``stereo/twoview.py _wta_scan``.  The wrapper runs it
-for CPU tensors and launches the kernel (or raises) for CUDA tensors.
+sequential WTA carry ``wta_scan``.  The wrapper runs it for CPU tensors and
+launches the kernel (or raises) for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -19,18 +19,32 @@ from .ncc_fast import fast_cost_plane, make_ref_view
 KERNEL_RADII = (5,)
 
 
+def wta_scan(cost_fn, depths, shape, dtype):
+    """Sequential WTA over depth labels with the reference's tie and
+    second-best rules (twoviewstereo.cpp:320-326): a label wins only if it
+    improves by more than 1e-10, and "second best" is the previous best at
+    that moment, not the global second minimum.  ``cost_fn(d_idx) -> (cost
+    [H, W], depth value)``.  Returns (min_cost, second, best)."""
+    dev = depths.device
+    min_cost = torch.full(shape, torch.inf, dtype=dtype, device=dev)
+    second = torch.full(shape, torch.inf, dtype=dtype, device=dev)
+    best = torch.full(shape, torch.nan, dtype=dtype, device=dev)
+    for d_idx in range(depths.shape[0]):
+        cost, depth_value = cost_fn(d_idx)
+        better = cost + 1e-10 < min_cost
+        second = torch.where(better, min_cost, second)
+        min_cost = torch.where(better, cost, min_cost)
+        best = torch.where(better, depth_value, best)
+    return min_cost, second, best
+
+
 def cost_wta_plain(depths, warped, wvalid, gray_ref, left_valid, weights, *,
                    radius: int, max_color_diff: float = 120.0,
                    bad_ret: float = 1000.0):
     """Plain PyTorch version of the cost kernel: same arguments and results
     as ``cuda_cost_wta``."""
-    from ..stereo.twoview import _wta_scan
-
     h, w = gray_ref.shape
-    # left_valid already holds the sample() validity: taken as given, as the
-    # kernel takes it
-    ref = make_ref_view(gray_ref, left_valid, weights, radius,
-                        inb=torch.ones_like(left_valid))
+    ref = make_ref_view(gray_ref, left_valid, weights, radius)
 
     def cost_at(d_idx):
         cost = fast_cost_plane(ref, warped[d_idx], wvalid[d_idx],
@@ -38,7 +52,7 @@ def cost_wta_plain(depths, warped, wvalid, gray_ref, left_valid, weights, *,
                                bad_ret=bad_ret)
         return cost, depths[d_idx]
 
-    return _wta_scan(cost_at, depths, (h, w), warped.dtype)
+    return wta_scan(cost_at, depths, (h, w), warped.dtype)
 
 
 def cuda_cost_wta(depths, warped, wvalid, gray_ref, left_valid, weights, *,
@@ -52,7 +66,7 @@ def cuda_cost_wta(depths, warped, wvalid, gray_ref, left_valid, weights, *,
     float32.
 
     Returns (min_cost, second, best_depth), each [H, W]: the WTA carry of
-    ``_wta_scan`` (inf, inf, NaN where no label won); the caller applies the
+    ``wta_scan`` (inf, inf, NaN where no label won); the caller applies the
     second-best rejection."""
     if depths.device.type == "cpu":
         return cost_wta_plain(depths, warped, wvalid, gray_ref, left_valid,

@@ -10,9 +10,9 @@ the warped plane:
 
 For locally affine epipolar maps the two agree to first order; this is the
 plane-sweep formulation of the JAX package's ``fast`` and ``pallas``
-methods.  ``fast_cost_plane`` with the sequential WTA of
-``stereo/twoview.py`` is the plain version of the cost kernel
-``csrc/cost_wta.cu`` (``ops/cuda_cost_wta.py``).
+methods.  ``fast_cost_plane`` with the sequential WTA ``wta_scan`` of
+``ops/cuda_cost_wta.py`` is the plain version of the cost kernel
+``csrc/cost_wta.cu``.
 """
 
 from __future__ import annotations
@@ -23,7 +23,6 @@ import torch
 import torch.nn.functional as F
 
 from .ncc import ncc_from_sums
-from .sampling import sample_valid
 from .warp import warp_bilinear
 
 _WEPS = 1e-10
@@ -33,23 +32,19 @@ COORD_SENTINEL = -3e6    # match point invalid: never sampled
 class RefView(NamedTuple):
     """Per-reference-view state shared by all depth planes."""
     gray_pad: torch.Tensor      # [H+2R, W+2R]
-    mask_pad: torch.Tensor      # [H+2R, W+2R] bool
-    inb_pad: torch.Tensor       # [H+2R, W+2R] bool (sample()-valid)
+    mask_pad: torch.Tensor      # [H+2R, W+2R] bool (left tap validity)
     weights: torch.Tensor       # [S, S, H, W]
     radius: int
 
 
-def make_ref_view(gray_ref, mask_ref, weights, radius: int,
-                  inb=None) -> RefView:
-    """``inb`` overrides the sample()-validity plane of the left taps
-    (default: all pixels but the last row and column)."""
+def make_ref_view(gray_ref, left_valid, weights, radius: int) -> RefView:
+    """``left_valid`` [H, W] is the left taps' validity, taken as given:
+    the caller folds in sample() validity (``mask & sample_valid``), as the
+    cost kernel's caller does."""
     pad = (radius,) * 4
-    if inb is None:
-        inb = sample_valid(*gray_ref.shape, gray_ref.device)
     return RefView(
         gray_pad=F.pad(gray_ref[None], pad)[0],
-        mask_pad=F.pad(mask_ref[None], pad, value=False)[0],
-        inb_pad=F.pad(inb[None], pad, value=False)[0],
+        mask_pad=F.pad(left_valid[None], pad, value=False)[0],
         weights=weights, radius=radius)
 
 
@@ -86,8 +81,7 @@ def fast_cost_plane(ref: RefView, warped, wvalid, *,
         for t in range(size):
             wgt = ref.weights[s, t]
             gl = ref.gray_pad[s:s + h, t:t + w]
-            lv = ref.inb_pad[s:s + h, t:t + w] & ref.mask_pad[s:s + h,
-                                                              t:t + w]
+            lv = ref.mask_pad[s:s + h, t:t + w]
             gr = wpad[s:s + h, t:t + w]
             rv = wvpad[s:s + h, t:t + w]
 

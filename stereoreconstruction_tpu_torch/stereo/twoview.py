@@ -33,7 +33,7 @@ from ..config import TwoViewConfig
 from ..device import resolve_device
 from ..geometry.camera import Camera, principal_ray, project, unproject
 from ..geometry.rays import _norm
-from ..ops.cuda_cost_wta import cuda_cost_wta
+from ..ops.cuda_cost_wta import cuda_cost_wta, wta_scan
 from ..ops.cuda_warp import cuda_warp_bilinear
 from ..ops.ncc import _left_windows, twoview_cost_plane
 from ..ops.ncc_fast import COORD_SENTINEL
@@ -48,23 +48,6 @@ from .multiview import (_host_distorted, _host_refractive, _trunc_index,
 class TwoViewResult(NamedTuple):
     depth_left: torch.Tensor    # [H, W]
     depth_right: torch.Tensor   # [H, W]
-
-
-def _wta_scan(cost_fn, depths, shape, dtype):
-    """Sequential WTA over depth labels with the reference's tie and
-    second-best rules; ``cost_fn(d_idx) -> (cost [H, W], depth value)``.
-    Returns (min_cost, second, best)."""
-    dev = depths.device
-    min_cost = torch.full(shape, torch.inf, dtype=dtype, device=dev)
-    second = torch.full(shape, torch.inf, dtype=dtype, device=dev)
-    best = torch.full(shape, torch.nan, dtype=dtype, device=dev)
-    for d_idx in range(depths.shape[0]):
-        cost, depth_value = cost_fn(d_idx)
-        better = cost + 1e-10 < min_cost
-        second = torch.where(better, min_cost, second)
-        min_cost = torch.where(better, cost, min_cost)
-        best = torch.where(better, depth_value, best)
-    return min_cost, second, best
 
 
 def _sweep_geometry(cam_ref: Camera, cam_oth: Camera, cfg: TwoViewConfig,
@@ -202,8 +185,8 @@ def compute_depth_map_oneview(
         min_cost, second, best = _kernel_sweep(*args, **kw)
     else:
         cost_at, depths = _build_cost_fn(*args, **kw)
-        min_cost, second, best = _wta_scan(cost_at, depths, gray_ref.shape,
-                                           dtype)
+        min_cost, second, best = wta_scan(cost_at, depths, gray_ref.shape,
+                                          dtype)
 
     # Ambiguity rejection (twoviewstereo.cpp:304-305); masked pixels stay
     # NaN (twoviewstereo.cpp:269-271).

@@ -154,8 +154,10 @@ def test_fast_cost_plane_matches_jax(scene):
     weights = np.array(jgw(jnp.asarray(rgbs[0]), 3, exact=False))
     jref = jnf.make_ref_view(jnp.asarray(grays[0]), jnp.asarray(masks[0]),
                              jnp.asarray(weights), 3)
+    # JAX's default folds sample() validity into the left taps; the port
+    # takes the left validity as given
     tref = tnf.make_ref_view(torch.as_tensor(grays[0]),
-                             torch.as_tensor(masks[0]),
+                             torch.as_tensor(masks[0]) & sample_valid(H, W),
                              torch.as_tensor(weights), 3)
     for d in (0, 5, 11):
         x2, y2 = coords[d].numpy()
