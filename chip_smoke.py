@@ -8,43 +8,71 @@ Run from the repository root:
 Phases; any failure raises, and the script exits non-zero:
 
 1. require CUDA; print the device and nvidia-smi's name and power limit;
-2. build the four CUDA kernels from csrc/ (one nvcc per source, in
+2. build the five CUDA kernels from csrc/ (one nvcc per source, in
    parallel);
 3. kernel 1 (geodesic weights) against its plain PyTorch version at
-   384x512, radius 2 (the MVS path) and radius 5 (the two-view path),
+   384x512, radius 2 (the MVS paths) and radius 5 (the two-view paths),
    max |diff| <= 2e-5; CUDA-event times;
-4. kernel 2 (MVS sweep) against its plain version on one view at 384x512,
-   100 labels, 3 neighbours: best_depth agrees on >= 99.9% of pixels,
-   |best_ncc diff| <= 1e-5 where both are finite, oob_frac == 0; times;
+4. kernel 2 (MVS sweep) against its plain versions on one view at 384x512,
+   100 labels, 3 neighbours.  WTA mode (K = 1): best_depth agrees on
+   >= 99.9% of pixels, |best_ncc diff| <= 1e-5 where both are finite,
+   oob_frac == 0.  Top-K mode (K = 9): each pixel's depth set agrees on
+   >= 99.9% of pixels, |ncc diff| <= 1e-5 on matched entries, oob_frac
+   == 0, and the last entry finalises to the WTA kernel's map; times;
 5. the MVS main path (the ``cli stereo`` library calls): mvs_depth_maps ->
    depth_maps_to_ply -> write_ply on an 8-view refractive rig rendered
    analytically in numpy at 384x512 (K sized for 768x1024, image_scale 0.5),
-   100 labels, radius 2, <= 3 neighbours, cross-check 0.5.  Kernels 1 and 2
-   must launch; depths are held against the analytic depth;
+   100 labels, radius 2, <= 3 neighbours, cross-check 0.5.  Kernels 1, 2
+   (WTA) and 5 (sampling) must launch; depths are held against the
+   analytic depth.  The sampling kernel's first call is recorded for
+   phase 15;
 6. a breakdown of a second MVS run: each stage of mvs_depth_maps and the
    PLY on the host clock, and the device's busy time by kernel from
    torch.profiler;
-7. kernel 3 (bilinear warp) against its plain version on view 0's two-view
+7. the MVS MRF main path (``cli stereo --mrf``): mvs_depth_maps with
+   use_mrf (top-K, TRW-S, labels_to_depth, cross-check) on the same rig.
+   Kernels 1, 2 (top-K) and 5 must launch; each view's last energy is at
+   most its first; depths are held against the analytic depth;
+8. a breakdown of a second MVS MRF run, its stages timed by shims around
+   the functions stereo/multiview.py calls;
+9. kernel 3 (bilinear warp) against its plain version on view 0's two-view
    coordinate volume (384x512, 100 labels): warped values bit-equal, the
    same validity, oob_frac == 0; times;
-8. kernel 4 (two-view cost + WTA) against its plain version (fast_cost_plane
-   and the WTA carry) on kernel 3's warp volume, radius 5, 100 labels:
-   best depth equal on >= 99.9% of pixels, |min-cost diff| <= 1e-4, the
-   same +inf pixels; times;
-9. the two-view main path (the ``cli stereo --two-view`` library call):
-   compute_depth_maps(method="kernel") with the cross-check on views 0 and
-   1 of the rig, TwoViewConfig defaults (radius 5, 100 labels t/(5-4t)
-   over 40..90, second best 0.95, inconsistency 1.0).  Kernels 1, 3 and 4
-   must launch; depths are held against the analytic depth;
-10. a breakdown of a second compute_depth_maps call, as in phase 6: its
-    stages timed by shims around the functions it calls;
-11. print the kernel table as one JSON line (kernel 1 has a row for each
-    radius, with that path's launches), then the result line
+10. kernel 4 (two-view cost) against its plain versions on kernel 3's warp
+    volume, radius 5, 100 labels.  WTA mode: best depth equal on >= 99.9%
+    of pixels, |min-cost diff| <= 1e-4, the same +inf pixels.  Volume
+    mode: bit-equal to fast_cost_plane stacked over the labels, the same
+    +inf entries.  Both also on random 61x83 inputs (ragged tiles); times;
+11. the two-view main path (the ``cli stereo --two-view`` library call):
+    compute_depth_maps(method="kernel") with the cross-check on views 0 and
+    1 of the rig, TwoViewConfig defaults (radius 5, 100 labels t/(5-4t)
+    over 40..90, second best 0.95, inconsistency 1.0).  Kernels 1, 3, 4
+    (WTA) and 5 must launch; depths are held against the analytic depth;
+12. a breakdown of a second compute_depth_maps call, as in phase 8;
+13. the two-view MRF main path (``cli stereo --two-view --mrf``):
+    compute_depth_maps(use_mrf=True).  Kernels 1, 3, 4 (volume) and 5 must
+    launch; each view's last BP energy is at most its first; depths are
+    held against the analytic depth;
+14. a breakdown of a second two-view MRF call, as in phase 8;
+15. kernel 5 (nearest sampling) against its plain version on random
+    coordinates (NaN/inf sources, out-of-map and non-finite coordinates)
+    and on the MVS cross-check's recorded coordinates: values bit-equal,
+    the same finite mask, oob_frac == 0; times, and the torch gather it
+    replaces;
+16. print the kernel table as one JSON line (kernel 1 has a row for each
+    radius; each row's launches are summed over the main paths that run
+    it, each read right after its own run), then the result line
     {"ok": true, "device": {...}} last.
+
+A kernel's time ("ms") is its device time from torch.profiler, the mean of
+10 launches each after an L2 flush; the event time of the whole wrapper
+call, which also counts the wrapper's host work, is printed beside it.
+The plain versions are timed by CUDA events around the call.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -70,6 +98,8 @@ TEXTURE_SCALE = 6.0      # texture frequency x6: structure at the 5x5 window
 # the two-view main path's least share of pixels with a depth after the
 # cross-check (views 0 and 1 overlap on ~80% of the image)
 TWO_VIEW_MIN_COVERAGE = 0.5
+# the MRF paths' least share of pixels with a depth after the cross-check
+MRF_MIN_COVERAGE = 0.25
 
 
 # --------------------------------------------------------------------------
@@ -182,6 +212,34 @@ def cuda_ms(fn, reps, device):
     return statistics.median(times)
 
 
+def kernel_ms(fn, reps, device, kernel):
+    """(device ms, call ms) of one call of ``fn``: the mean device time of
+    the CUDA kernel whose name holds ``kernel`` over ``reps`` calls, each
+    after an L2 flush, from torch.profiler; and ``cuda_ms``'s event time of
+    the whole call, which also counts the host work of the wrapper while
+    the card waits (tens of microseconds)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call = cuda_ms(fn, reps, device)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize(device)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and kernel in e.key]
+    n = sum(e.count for e in rows)
+    if n != reps:
+        print(f"  timing: profiled {n} launches of {kernel}, not {reps}"
+              + ("; its time is the call's" if n == 0 else ""))
+    if n == 0:
+        return call, call
+    return sum(e.self_device_time_total for e in rows) / n / 1e3, call
+
+
 def bound(n_bytes, n_ops):
     """Least time (ms) for the work on the card, and what bounds it."""
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
@@ -198,15 +256,17 @@ def geodesic_ops(radius, iters=3):
     return iters * 2 * 2 * per_dir + 4 * 9 + 2 * s * s
 
 
-def sweep_counts(inputs, nbr_valid, radius):
+def sweep_counts(inputs, nbr_valid, radius, every_pixel=False):
     """(valid taps, evaluated units) of the sweep on these inputs: a unit
-    is a (pixel, label, neighbour) with a valid centre, base sample and
-    neighbour; a tap is valid under the kernel's bounds and left mask."""
+    is a (pixel, label, neighbour) with a valid centre (any centre with
+    ``every_pixel``, as the top-K mode sweeps), base sample and neighbour;
+    a tap is valid under the kernel's bounds and left mask."""
     coords, gray = inputs["coords"], inputs["gray_nbr"]
     hs, ws = gray.shape[1:]
     lmask = (inputs["lv"] & (inputs["weights"] > 1e-10)).reshape(
         2 * radius + 1, 2 * radius + 1, 1, *inputs["lv"].shape[1:])
-    keep = inputs["center_valid"][None] & nbr_valid[:, None, None]
+    keep = nbr_valid[:, None, None] & (
+        True if every_pixel else inputs["center_valid"][None])
     offs = torch.arange(-radius, radius + 1, device=coords.device,
                         dtype=coords.dtype)[:, None, None, None]
     taps = units = 0
@@ -225,16 +285,17 @@ def sweep_counts(inputs, nbr_valid, radius):
 # Phases
 # --------------------------------------------------------------------------
 
-def check_weights(device, rgb, radii, reps):
-    """Kernel 1 against its plain version at each radius of the main paths;
-    returns one table row a radius, {radius: row}."""
+def check_weights(device, rgb, paths_by_radius, reps):
+    """Kernel 1 against its plain version at each radius of the main paths
+    ({radius: the paths that run it}); returns one table row a radius,
+    {radius: row}."""
     from stereoreconstruction_tpu_torch.ops.cuda_weights import (
         cuda_geodesic_weights)
     from stereoreconstruction_tpu_torch.ops.weights import geodesic_weights
 
     h, w = rgb.shape[:2]
     rows = {}
-    for radius in radii:
+    for radius, paths in paths_by_radius.items():
         got = cuda_geodesic_weights(rgb, radius)
         want = geodesic_weights(rgb, radius, exact=False)
         err = float((got - want).abs().max())
@@ -243,29 +304,29 @@ def check_weights(device, rgb, radii, reps):
             raise AssertionError(f"geodesic weights r={radius} disagree: "
                                  f"{err}")
         size = 2 * radius + 1
-        ms = cuda_ms(lambda: cuda_geodesic_weights(rgb, radius), reps,
-                     device)
+        ms, call_ms = kernel_ms(lambda: cuda_geodesic_weights(rgb, radius),
+                                reps, device,
+                                f"geodesic_weights_kernel<{radius}>")
         plain_ms = cuda_ms(lambda: geodesic_weights(rgb, radius,
                                                     exact=False),
                            reps, device)
         bound_ms, by = bound(rgb.numel() * 4 + size * size * h * w * 4,
                              geodesic_ops(radius) * h * w)
-        print(f"weights r={radius} {h}x{w}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
+        print(f"weights r={radius} {h}x{w}: kernel {ms:.4f} ms (call "
+              f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({by})")
         rows[radius] = dict(
             name=f"geodesic_weights_r{radius}", counter="geodesic_weights",
             route="cuda",
             source="stereoreconstruction_tpu_torch/csrc/geodesic_weights.cu",
             replaces="stereoreconstruction_tpu/ops/pallas_weights.py:166",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=by, library_ms=None)
+            bound_by=by, library_ms=None, paths=paths)
     return rows
 
 
-def check_sweep(device, rig, reps, plain_reps):
-    """Kernel 2 against its plain version on view 0; returns its row."""
-    from stereoreconstruction_tpu_torch.ops.cuda_mvs import (
-        cuda_mvs_wta, mvs_wta_plain)
+def sweep_inputs(device, rig):
+    """View 0's sweep-kernel inputs and its neighbours' validity."""
     from stereoreconstruction_tpu_torch.geometry.camera import camera_at
     from stereoreconstruction_tpu_torch.stereo.multiview import (
         mvs_kernel_inputs, mvs_prepare_batched)
@@ -280,7 +341,15 @@ def check_sweep(device, rig, reps, plain_reps):
         grays[torch.as_tensor(nbr_idx[0], device=device)],
         camera_at(cams_all, 0), camera_at(cams_nbr, 0), cfg,
         enable_refraction=refr, enable_distortion=dist)
-    nv = torch.as_tensor(nbr_valid[0], device=device)
+    return inputs, torch.as_tensor(nbr_valid[0], device=device)
+
+
+def check_sweep(device, cfg, inputs, nv, reps, plain_reps):
+    """Kernel 2's WTA mode (K = 1) against its plain version on view 0;
+    returns its row."""
+    from stereoreconstruction_tpu_torch.ops.cuda_mvs import (
+        cuda_mvs_wta, mvs_wta_plain)
+
     kw = dict(radius=cfg.window_radius, thr=float(cfg.ncc_threshold))
 
     n_k, d_k, oob = cuda_mvs_wta(nbr_valid=nv, **kw, **inputs)
@@ -298,66 +367,206 @@ def check_sweep(device, rig, reps, plain_reps):
         raise AssertionError("MVS sweep kernel disagrees with its plain "
                              "version")
 
-    ms = cuda_ms(lambda: cuda_mvs_wta(nbr_valid=nv, **kw, **inputs), reps,
-                 device)
+    ms, call_ms = kernel_ms(
+        lambda: cuda_mvs_wta(nbr_valid=nv, **kw, **inputs), reps, device,
+        "mvs_sweep_kernel<2, 1>")
     plain_ms = cuda_ms(lambda: mvs_wta_plain(nbr_valid=nv, **kw, **inputs),
                        plain_reps, device)
     taps, units = sweep_counts(inputs, nv, cfg.window_radius)
     n_bytes = sum(t.numel() * t.element_size() for t in inputs.values()) \
         + nv.numel() + 2 * d_k.numel() * 4
     bound_ms, by = bound(n_bytes, 11 * taps + 27 * units)
-    print(f"sweep: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+    print(f"sweep: kernel {ms:.4f} ms (call {call_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({by}; {n_bytes / 1e6:.1f} MB, {taps} valid "
           f"taps, {units} units)")
     return dict(name="mvs_sweep", counter="mvs_sweep", route="cuda",
                 source="stereoreconstruction_tpu_torch/csrc/mvs_sweep.cu",
                 replaces="stereoreconstruction_tpu/ops/pallas_mvs.py:306",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=by, library_ms=None)
+                bound_ms=bound_ms, bound_by=by, library_ms=None,
+                paths=("mvs",))
+
+
+def check_topk(device, cfg, inputs, nv, reps, plain_reps):
+    """Kernel 2's top-K mode (K = cfg.top_k) against its plain version on
+    view 0; returns its row."""
+    from stereoreconstruction_tpu_torch.ops.cuda_mvs import (
+        cuda_mvs_topk, cuda_mvs_wta, mvs_topk_plain)
+    from stereoreconstruction_tpu_torch.stereo.multiview import (
+        mvs_finalize_wta)
+
+    args = {k: v for k, v in inputs.items() if k != "center_valid"}
+    kw = dict(radius=cfg.window_radius, thr=float(cfg.ncc_threshold),
+              top_k=cfg.top_k)
+    n_k, d_k, oob = cuda_mvs_topk(nbr_valid=nv, **kw, **args)
+    n_p, d_p = mvs_topk_plain(nbr_valid=nv, **kw, **args)
+    # each pixel's hypotheses ordered by depth (a label enters a list once;
+    # the (-inf, -1) pads sort first)
+    dk, ok = torch.sort(d_k, dim=0)
+    dp, op = torch.sort(d_p, dim=0)
+    nk, np_ = n_k.gather(0, ok), n_p.gather(0, op)
+    agree = float((dk == dp).all(dim=0).float().mean())
+    matched = (dk == dp) & (dk > 0)
+    err = float((nk - np_)[matched].abs().max()) if bool(matched.any()) \
+        else 0.0
+    # the last (largest) entry finalises to the WTA kernel's map
+    b_n, b_d, _ = cuda_mvs_wta(nbr_valid=nv, radius=kw["radius"],
+                               thr=kw["thr"], **inputs)
+    center = inputs["center_valid"]
+    last = torch.where(n_k[-1] > kw["thr"], d_k[-1], -1.0)
+    same_wta = bool(torch.equal(torch.where(center, last, torch.inf),
+                                mvs_finalize_wta(b_n, b_d, center)))
+    print(f"top-K view 0 K={cfg.top_k} {tuple(d_k.shape)}: depth sets agree "
+          f"on {agree:.6f} of pixels, max |ncc diff| {err:.3e} on "
+          f"{int(matched.sum())} matched peaks, last entry = WTA map "
+          f"{same_wta}, oob_frac {float(oob)}")
+    if not (agree >= 0.999 and err <= 1e-5 and same_wta
+            and float(oob) == 0.0):
+        raise AssertionError("top-K sweep kernel disagrees with its plain "
+                             "version")
+
+    ms, call_ms = kernel_ms(
+        lambda: cuda_mvs_topk(nbr_valid=nv, **kw, **args), reps, device,
+        f"mvs_sweep_kernel<2, {cfg.top_k}>")
+    plain_ms = cuda_ms(lambda: mvs_topk_plain(nbr_valid=nv, **kw, **args),
+                       plain_reps, device)
+    taps, units = sweep_counts(inputs, nv, cfg.window_radius,
+                               every_pixel=True)
+    n_bytes = sum(t.numel() * t.element_size() for t in args.values()) \
+        + nv.numel() + 2 * d_k.numel() * 4
+    # the insertion: ~5 operations (compare, two selects, a store of two
+    # values) a list entry a (pixel, label)
+    inserts = 5 * cfg.top_k * d_k[0].numel() * inputs["coords"].shape[0]
+    bound_ms, by = bound(n_bytes, 11 * taps + 27 * units + inserts)
+    print(f"top-K: kernel {ms:.4f} ms (call {call_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({by}; {taps} valid taps, {units} units)")
+    return dict(name="mvs_sweep_topk", counter="mvs_sweep_topk",
+                route="cuda",
+                source="stereoreconstruction_tpu_torch/csrc/mvs_sweep.cu",
+                replaces="stereoreconstruction_tpu/ops/pallas_mvs.py:306",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=None,
+                paths=("mvs_mrf",))
+
+
+def kernel_counters():
+    """Each kernel wrapper of the main paths by its counter's name."""
+    from stereoreconstruction_tpu_torch.ops.cuda_cost_wta import (
+        cuda_cost_volume, cuda_cost_wta)
+    from stereoreconstruction_tpu_torch.ops.cuda_mvs import (
+        cuda_mvs_topk, cuda_mvs_wta)
+    from stereoreconstruction_tpu_torch.ops.cuda_sample import (
+        cuda_sample_nearest)
+    from stereoreconstruction_tpu_torch.ops.cuda_warp import (
+        cuda_warp_bilinear)
+    from stereoreconstruction_tpu_torch.ops.cuda_weights import (
+        cuda_geodesic_weights)
+    return {"geodesic_weights": cuda_geodesic_weights,
+            "mvs_sweep": cuda_mvs_wta, "mvs_sweep_topk": cuda_mvs_topk,
+            "warp_bilinear": cuda_warp_bilinear, "cost_wta": cuda_cost_wta,
+            "cost_volume": cuda_cost_volume,
+            "sample_nearest": cuda_sample_nearest}
+
+
+# the kernels each main path must launch
+PATH_KERNELS = {
+    "mvs": ("geodesic_weights", "mvs_sweep", "sample_nearest"),
+    "mvs_mrf": ("geodesic_weights", "mvs_sweep_topk", "sample_nearest"),
+    "twoview": ("geodesic_weights", "warp_bilinear", "cost_wta",
+                "sample_nearest"),
+    "twoview_mrf": ("geodesic_weights", "warp_bilinear", "cost_volume",
+                    "sample_nearest"),
+}
+
+
+def counted(device, path, call):
+    """Run ``call()`` with every kernel's count set to 0 just before it and
+    read just after; fail if a kernel of ``path`` did not launch.  Returns
+    (call's result, host-clock seconds, {kernel: launches})."""
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = {k: counters[k].launches for k in PATH_KERNELS[path]}
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"a kernel did not launch on the {path} main "
+                             f"path: {launches}")
+    return out, wall, launches
+
+
+def recording(module, name, record):
+    """A context in which ``module.name`` is wrapped so that ``record(args,
+    result)`` sees each call; the wrapper launches nothing of its own."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = getattr(module, name)
+
+        def wrapped(*a, **kw):
+            out = orig(*a, **kw)
+            record(a, out)
+            return out
+        setattr(module, name, wrapped)
+        try:
+            yield
+        finally:
+            setattr(module, name, orig)
+    return ctx()
+
+
+def depth_quality(d, truth, step):
+    """(coverage, median |depth error|) of a depth map against the truth:
+    the share of pixels with a positive finite depth, and their error."""
+    if d.shape != truth.shape:
+        raise AssertionError(f"depth map {d.shape} != {truth.shape}")
+    ok = np.isfinite(d) & (d > 0)
+    err = np.abs(d - truth)[ok]
+    return float(ok.mean()), float(np.median(err)) if err.size \
+        else float("inf")
 
 
 def main_path(device, rig, true_depth, outdir):
     """mvs_depth_maps -> depth_maps_to_ply -> write_ply, as ``cli stereo``
-    calls them; returns each kernel's launches in this run."""
+    calls them.  Returns each kernel's launches in this run, the coverage,
+    and the sampling kernel's first inputs (the cross-check of view 0)."""
     from stereoreconstruction_tpu_torch.data.ply import read_ply, write_ply
-    from stereoreconstruction_tpu_torch.ops.cuda_mvs import cuda_mvs_wta
-    from stereoreconstruction_tpu_torch.ops.cuda_weights import (
-        cuda_geodesic_weights)
+    from stereoreconstruction_tpu_torch.stereo import multiview
     from stereoreconstruction_tpu_torch.stereo.multiview import (
         depth_maps_to_ply, mvs_depth_maps)
 
     cams, cfg, rgbs, masks = rig
-    cuda_geodesic_weights.launches = 0
-    cuda_mvs_wta.launches = 0
-    torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    depths = mvs_depth_maps(rgbs, masks, cams, cfg, device=device)
-    torch.cuda.synchronize(device)
-    t_depth = time.perf_counter() - t0
-    pts, cols = depth_maps_to_ply(depths, rgbs, cams, cfg, device=device)
-    ply = os.path.join(outdir, "scene.ply")
-    write_ply(ply, pts, cols)
-    t_all = time.perf_counter() - t0
-    launches = {"geodesic_weights": cuda_geodesic_weights.launches,
-                "mvs_sweep": cuda_mvs_wta.launches}
+    sampled = []
+
+    def keep_first(args, _):
+        if not sampled:
+            sampled.append(tuple(a.clone() for a in args))
+
+    with recording(multiview, "cuda_sample_nearest", keep_first):
+        t0 = time.perf_counter()
+        depths, t_depth, launches = counted(
+            device, "mvs",
+            lambda: mvs_depth_maps(rgbs, masks, cams, cfg, device=device))
+        pts, cols = depth_maps_to_ply(depths, rgbs, cams, cfg, device=device)
+        ply = os.path.join(outdir, "scene.ply")
+        write_ply(ply, pts, cols)
+        t_all = time.perf_counter() - t0
 
     d = depths.cpu().numpy()
-    if d.shape != true_depth.shape:
-        raise AssertionError(f"depth maps {d.shape} != {true_depth.shape}")
-    ok = np.isfinite(d) & (d > 0)
     step = (cfg.max_depth - cfg.min_depth) / (cfg.num_depth_levels - 1)
-    err = np.abs(d - true_depth)[ok]
-    coverage = float(ok.mean())
-    med = float(np.median(err)) if err.size else float("inf")
+    coverage, med = depth_quality(d, true_depth, step)
     n_read = len(read_ply(ply)[0])
     print(f"main path: {len(cams)} views {d.shape[1]}x{d.shape[2]}, "
           f"{t_depth:.3f} s depth maps, {t_all:.3f} s with the PLY; "
           f"{len(pts)} points ({n_read} read back); coverage {coverage:.4f};"
           f" median |depth error| {med:.4f} (step {step:.4f}); launches "
           f"{launches}")
-    if not all(v > 0 for v in launches.values()):
-        raise AssertionError(f"a kernel did not launch on the main path: "
-                             f"{launches}")
     # Every surviving depth passed a 0.95-NCC peak test and an any-view
     # cross-check; on an exactly photoconsistent textured plane the median
     # survivor sits within one label of the truth, and at least a quarter
@@ -365,6 +574,38 @@ def main_path(device, rig, true_depth, outdir):
     if not (med <= step and coverage >= 0.25 and n_read == len(pts)
             and np.isfinite(pts).all()):
         raise AssertionError("main-path depth maps fail the analytic check")
+    return launches, coverage, sampled[0]
+
+
+def mrf_main_path(device, rig, true_depth, wta_coverage):
+    """mvs_depth_maps with use_mrf, as ``cli stereo --mrf`` calls it;
+    returns each kernel's launches in this run."""
+    from stereoreconstruction_tpu_torch.stereo import multiview
+
+    cams, cfg, rgbs, masks = rig
+    cfg = dataclasses.replace(cfg, use_mrf=True)
+    results = []
+    with recording(multiview, "trws_optimize",
+                   lambda _, res: results.append(res)):
+        depths, wall, launches = counted(
+            device, "mvs_mrf", lambda: multiview.mvs_depth_maps(
+                rgbs, masks, cams, cfg, device=device))
+    step = (cfg.max_depth - cfg.min_depth) / (cfg.num_depth_levels - 1)
+    coverage, med = depth_quality(depths.cpu().numpy(), true_depth, step)
+    iters = [r.iterations for r in results]
+    first = [float(r.energies[0]) for r in results]
+    last = [float(r.energy) for r in results]
+    print(f"MRF main path: {len(cams)} views, {wall:.3f} s depth maps "
+          f"(top-K K={cfg.top_k}, TRW-S, cross-check); TRW-S iterations a "
+          f"view {iters}; energy first {[round(e, 2) for e in first]}, "
+          f"last {[round(e, 2) for e in last]}; coverage {coverage:.4f} "
+          f"(WTA {wta_coverage:.4f}); median |depth error| {med:.4f} "
+          f"(step {step:.4f}); launches {launches}")
+    if len(results) != len(cams) or not all(
+            b <= a for a, b in zip(first, last)):
+        raise AssertionError("an MRF view ended above its first energy")
+    if not (med <= step and coverage >= MRF_MIN_COVERAGE):
+        raise AssertionError("MRF depth maps fail the analytic check")
     return launches
 
 
@@ -395,11 +636,19 @@ def profiled(device, title, body):
         wall = time.perf_counter() - t0
 
     print(f"profile {title}: {wall:.3f} s on the host clock")
+    # a stage annotation's device time: the kernels launched inside it
+    averages = prof.key_averages()
+    stage_dev = {e.key: getattr(e, "device_time_total", 0.0) / 1e6
+                 for e in averages
+                 if e.device_type == DeviceType.CPU and e.key in stages}
     stages["rest (untimed)"] = wall - sum(stages.values())
     for name, sec in stages.items():
-        print(f"profile:   {name:28s} {sec:8.3f} s  {100 * sec / wall:5.1f}%")
+        dev = (f"  device {stage_dev[name]:8.3f} s" if name in stage_dev
+               else "")
+        print(f"profile:   {name:28s} {sec:8.3f} s  {100 * sec / wall:5.1f}%"
+              f"{dev}")
     # device-side rows of the stage annotations span kernels: leave them out
-    kernels = [e for e in prof.key_averages()
+    kernels = [e for e in averages
                if e.device_type == DeviceType.CUDA and e.key not in stages]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     print(f"profile: device busy {busy:.3f} s = {100 * busy / wall:.1f}% of "
@@ -509,7 +758,8 @@ def check_warp(device, tv, reps, plain_reps):
     if not (same_valid and err == 0.0 and float(oob) == 0.0 and n_valid):
         raise AssertionError("warp kernel disagrees with its plain version")
 
-    ms = cuda_ms(lambda: cuda_warp_bilinear(coords, gray, mask), reps, device)
+    ms, call_ms = kernel_ms(lambda: cuda_warp_bilinear(coords, gray, mask),
+                            reps, device, "warp_bilinear_kernel")
     plain_ms = cuda_ms(lambda: warp_bilinear(coords, gray, mask), plain_reps,
                        device)
     hs, ws = gray.shape
@@ -520,14 +770,15 @@ def check_warp(device, tv, reps, plain_reps):
     # a sample()-valid position: 4 triangle weights (3 each), 8 x-products
     # and 4 adds, 4 y-products and 2 adds, 1 compare
     bound_ms, by = bound(n_bytes, 31 * n_samp)
-    print(f"warp: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+    print(f"warp: kernel {ms:.4f} ms (call {call_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({by}; {n_bytes / 1e6:.1f} MB, {n_samp} "
           f"sample-valid positions)")
     row = dict(name="warp_bilinear", counter="warp_bilinear", route="cuda",
                source="stereoreconstruction_tpu_torch/csrc/warp_bilinear.cu",
                replaces="stereoreconstruction_tpu/ops/pallas_warp.py:182",
                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-               bound_by=by, library_ms=None)
+               bound_by=by, library_ms=None, paths=("twoview", "twoview_mrf"))
     return row, w_k, v_k
 
 
@@ -549,8 +800,25 @@ def cost_counts(left_valid, weights, wvalid, radius):
     return taps, int(wvalid.sum())
 
 
+def ragged_inputs(device, radius, seed=7):
+    """Random cost-kernel inputs at 61 x 83, where its 32 x 4 pixel tiles
+    end ragged: (depths, warped, wvalid, gray_ref, left_valid, weights)."""
+    rng = np.random.default_rng(seed)
+    size = 2 * radius + 1
+
+    def rand(shape, lo=0.0, hi=255.0):
+        return torch.as_tensor(rng.uniform(lo, hi, shape),
+                               dtype=torch.float32, device=device)
+
+    return (torch.sort(rand((5,), 40.0, 90.0)).values, rand((5, 61, 83)),
+            rand((5, 61, 83), 0.0, 1.0) > 0.1, rand((61, 83)),
+            rand((61, 83), 0.0, 1.0) > 0.1, rand((size, size, 61, 83),
+                                                 0.0, 1.0))
+
+
 def check_cost(device, tv, warped, wvalid, cfg, reps, plain_reps):
-    """Kernel 4 against its plain version; returns its table row."""
+    """Kernel 4's WTA mode against its plain version; returns its table
+    row."""
     from stereoreconstruction_tpu_torch.ops.cuda_cost_wta import (
         cost_wta_plain, cuda_cost_wta)
 
@@ -573,23 +841,14 @@ def check_cost(device, tv, warped, wvalid, cfg, reps, plain_reps):
     if not (agree >= 0.999 and err <= 1e-4 and same_inf):
         raise AssertionError("cost kernel disagrees with its plain version")
     # the kernel's 32 x 4 pixel tiles end ragged at 61 x 83 (random inputs)
-    rng = np.random.default_rng(7)
-    size = 2 * cfg.window_radius + 1
-
-    def rand(shape, lo=0.0, hi=255.0):
-        return torch.as_tensor(rng.uniform(lo, hi, shape),
-                               dtype=torch.float32, device=device)
-
-    ragged = (torch.sort(rand((5,), 40.0, 90.0)).values, rand((5, 61, 83)),
-              rand((5, 61, 83), 0.0, 1.0) > 0.1, rand((61, 83)),
-              rand((61, 83), 0.0, 1.0) > 0.1, rand((size, size, 61, 83),
-                                                   0.0, 1.0))
+    ragged = ragged_inputs(device, cfg.window_radius)
     for got, want in zip(cuda_cost_wta(*ragged, **kw),
                          cost_wta_plain(*ragged, **kw)):
         if not torch.equal(got.nan_to_num(), want.nan_to_num()):
             raise AssertionError("cost kernel disagrees at a ragged edge")
 
-    ms = cuda_ms(lambda: cuda_cost_wta(*args, **kw), reps, device)
+    ms, call_ms = kernel_ms(lambda: cuda_cost_wta(*args, **kw), reps,
+                            device, "cost_wta_kernel<5, false>")
     plain_ms = cuda_ms(lambda: cost_wta_plain(*args, **kw), plain_reps,
                        device)
     taps, units = cost_counts(tv["left_valid"], tv["weights"], wvalid,
@@ -599,88 +858,202 @@ def check_cost(device, tv, warped, wvalid, cfg, reps, plain_reps):
     # 12 float32 operations a tap (2 products, 3 squares / cross products,
     # 7 adds) and ~30 a unit (means, the three sums, sqrt, the cost, WTA)
     bound_ms, by = bound(n_bytes, 12 * taps + 30 * units)
-    print(f"cost: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+    print(f"cost: kernel {ms:.4f} ms (call {call_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({by}; {n_bytes / 1e6:.1f} MB, {taps} taps, "
           f"{units} units)")
     return dict(name="cost_wta", counter="cost_wta", route="cuda",
                 source="stereoreconstruction_tpu_torch/csrc/cost_wta.cu",
                 replaces="stereoreconstruction_tpu/ops/pallas_ncc.py:158",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=None, paths=("twoview",))
 
 
-TWO_VIEW_KERNELS = ("geodesic_weights", "warp_bilinear", "cost_wta")
-
-
-def twoview_counters():
+def check_cost_volume(device, tv, warped, wvalid, cfg, reps, plain_reps):
+    """Kernel 4's volume mode against its plain version (fast_cost_plane
+    stacked over the labels); returns its table row."""
     from stereoreconstruction_tpu_torch.ops.cuda_cost_wta import (
-        cuda_cost_wta)
-    from stereoreconstruction_tpu_torch.ops.cuda_warp import (
-        cuda_warp_bilinear)
-    from stereoreconstruction_tpu_torch.ops.cuda_weights import (
-        cuda_geodesic_weights)
-    return dict(zip(TWO_VIEW_KERNELS, (cuda_geodesic_weights,
-                                       cuda_warp_bilinear, cuda_cost_wta)))
+        cost_volume_plain, cuda_cost_volume)
+
+    args = (warped, wvalid, tv["gray_ref"], tv["left_valid"], tv["weights"])
+    kw = dict(radius=cfg.window_radius, max_color_diff=cfg.max_color_diff,
+              bad_ret=cfg.bad_ret)
+    vol_k = cuda_cost_volume(*args, **kw)
+    vol_p = cost_volume_plain(*args, **kw)
+    same_inf = bool(torch.equal(torch.isinf(vol_k), torch.isinf(vol_p)))
+    fin = torch.isfinite(vol_p)
+    err = float((vol_k - vol_p)[fin].abs().max())
+    print(f"cost volume view 0 {tuple(vol_k.shape)} r={cfg.window_radius}: "
+          f"max |kernel - plain| {err:.3e} over {int(fin.sum())} finite "
+          f"costs, +inf entries equal {same_inf} ({int((~fin).sum())})")
+    ragged = ragged_inputs(device, cfg.window_radius)[1:]
+    ragged_equal = bool(torch.equal(cuda_cost_volume(*ragged, **kw),
+                                    cost_volume_plain(*ragged, **kw)))
+    if not (err == 0.0 and same_inf and ragged_equal
+            and bool(torch.equal(vol_k, vol_p))):
+        raise AssertionError("cost volume kernel disagrees with its plain "
+                             f"version (ragged tiles equal: {ragged_equal})")
+
+    ms, call_ms = kernel_ms(lambda: cuda_cost_volume(*args, **kw), reps,
+                            device, "cost_wta_kernel<5, true>")
+    plain_ms = cuda_ms(lambda: cost_volume_plain(*args, **kw), plain_reps,
+                       device)
+    taps, units = cost_counts(tv["left_valid"], tv["weights"], wvalid,
+                              cfg.window_radius)
+    n_bytes = (sum(t.numel() * t.element_size() for t in args)
+               + vol_k.numel() * 4)
+    # 12 float32 operations a tap and ~25 a unit (the cost, no WTA)
+    bound_ms, by = bound(n_bytes, 12 * taps + 25 * units)
+    print(f"cost volume: kernel {ms:.4f} ms (call {call_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({by}; {n_bytes / 1e6:.1f} MB, {taps} taps, "
+          f"{units} units)")
+    return dict(name="cost_volume", counter="cost_volume", route="cuda",
+                source="stereoreconstruction_tpu_torch/csrc/cost_wta.cu",
+                replaces="stereoreconstruction_tpu/ops/pallas_ncc.py:158",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=by, library_ms=None, paths=("twoview_mrf",))
+
+
+def twoview_report(title, res, true_depth, cfg, min_coverage):
+    """Print each view's coverage and median |depth error| against the
+    truth and fail below ``min_coverage`` or beyond one label step.
+    Returns the coverages."""
+    step = twoview_step(cfg)
+    coverages = []
+    for side, d, truth in zip(("left", "right"), res, true_depth):
+        d = d.cpu().numpy()
+        coverage, med = depth_quality(d, truth, step)
+        coverages.append(coverage)
+        print(f"  {title} {side}: coverage {coverage:.4f}, median |depth "
+              f"error| {med:.4f} (label step at z={TARGET_Z}: {step:.4f}), "
+              f"{int(np.isinf(d).sum())} rejected (+inf)")
+        if not (med <= step and coverage >= min_coverage):
+            raise AssertionError(f"{title} {side} depth map fails the "
+                                 "analytic check")
+    return coverages
 
 
 def twoview_main_path(device, rig2, true_depth):
     """compute_depth_maps(method="kernel") with the cross-check, as
-    ``cli stereo --two-view`` calls it; returns each kernel's launches."""
+    ``cli stereo --two-view`` calls it; returns each kernel's launches and
+    both views' coverage."""
     from stereoreconstruction_tpu_torch.stereo.twoview import (
         compute_depth_maps)
 
     cams, cfg, rgbs, masks = rig2
-    counters = twoview_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    res = compute_depth_maps(rgbs[0], masks[0], rgbs[1], masks[1], cams[0],
-                             cams[1], cfg, method="kernel", device=device)
-    torch.cuda.synchronize(device)
-    wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
-
-    step = twoview_step(cfg)
+    res, wall, launches = counted(
+        device, "twoview",
+        lambda: compute_depth_maps(rgbs[0], masks[0], rgbs[1], masks[1],
+                                   cams[0], cams[1], cfg, method="kernel",
+                                   device=device))
     print(f"two-view main path: {wall:.3f} s for both views "
           f"{tuple(res.depth_left.shape)} with the cross-check; launches "
           f"{launches}")
-    if not all(v > 0 for v in launches.values()):
-        raise AssertionError(f"a kernel did not launch on the two-view main "
-                             f"path: {launches}")
-    for side, d, truth in zip(("left", "right"), res, true_depth):
-        d = d.cpu().numpy()
-        if d.shape != truth.shape:
-            raise AssertionError(f"depth map {d.shape} != {truth.shape}")
-        ok = np.isfinite(d) & (d > 0)
-        coverage = float(ok.mean())
-        err = np.abs(d - truth)[ok]
-        med = float(np.median(err)) if err.size else float("inf")
-        print(f"  {side}: coverage {coverage:.4f}, median |depth error| "
-              f"{med:.4f} (label step at z={TARGET_Z}: {step:.4f}), "
-              f"{int(np.isinf(d).sum())} rejected (+inf)")
-        # every survivor passed the 0.95 second-best test and the symmetric
-        # cross-check at 1.0: on an exactly photoconsistent textured plane
-        # the median survivor sits within one label of the truth
-        if not (med <= step and coverage >= TWO_VIEW_MIN_COVERAGE):
-            raise AssertionError(f"two-view {side} depth map fails the "
-                                 "analytic check")
-    return launches
+    # every survivor passed the 0.95 second-best test and the symmetric
+    # cross-check at 1.0: on an exactly photoconsistent textured plane the
+    # median survivor sits within one label of the truth
+    return launches, twoview_report("two-view", res, true_depth, cfg,
+                                    TWO_VIEW_MIN_COVERAGE)
 
 
-def profile_twoview(device, rig2):
-    """Where the two-view main path's time goes: one
-    compute_depth_maps(method="kernel") call, each stage timed by a shim
-    around the module-level function of stereo/twoview.py that runs it."""
+def bp_iterations(trace):
+    """BP updates before the stop rule froze the messages, read from the
+    trace: the frozen tail repeats the final energy."""
+    t = trace.cpu().numpy()
+    moving = np.nonzero(t != t[-1])[0]
+    return int(moving[-1]) + 2 if moving.size else 1
+
+
+def twoview_mrf_main_path(device, rig2, true_depth, wta_coverages):
+    """compute_depth_maps(method="kernel", use_mrf=True), as ``cli stereo
+    --two-view --mrf`` calls it; returns each kernel's launches."""
     from stereoreconstruction_tpu_torch.stereo import twoview
 
     cams, cfg, rgbs, masks = rig2
-    stages = {"compute_weights": f"weights (kernel 1, r={cfg.window_radius})",
-              "twoview_coords": "coordinate volume",
-              "cuda_warp_bilinear": "warp kernel",
-              "cuda_cost_wta": "cost + WTA kernel",
-              "cross_check_pair": "cross-check"}
-    originals = {f: getattr(twoview, f) for f in stages}
+    traces = []
+    with recording(twoview, "twoview_bp",
+                   lambda _, out: traces.append(out[1])):
+        res, wall, launches = counted(
+            device, "twoview_mrf",
+            lambda: twoview.compute_depth_maps(
+                rgbs[0], masks[0], rgbs[1], masks[1], cams[0], cams[1], cfg,
+                method="kernel", use_mrf=True, device=device))
+    first = [float(t[0]) for t in traces]
+    last = [float(t[-1]) for t in traces]
+    print(f"two-view MRF main path: {wall:.3f} s for both views (cost "
+          f"volume, BP, cross-check); BP iterations a view "
+          f"{[bp_iterations(t) for t in traces]} (from the trace); energy "
+          f"first {[round(e, 1) for e in first]}, last "
+          f"{[round(e, 1) for e in last]}; WTA coverage "
+          f"{[round(c, 4) for c in wta_coverages]}; launches {launches}")
+    if len(traces) != 2 or not all(b <= a for a, b in zip(first, last)):
+        raise AssertionError("a two-view BP ended above its first energy")
+    twoview_report("two-view MRF", res, true_depth, cfg, MRF_MIN_COVERAGE)
+    return launches
+
+
+def check_sampler(device, sampled, reps, plain_reps):
+    """Kernel 5 against its plain version on random inputs and on the MVS
+    cross-check's recorded ones; returns its table row."""
+    from stereoreconstruction_tpu_torch.ops.cuda_sample import (
+        cuda_sample_nearest, sample_nearest_plain, trunc_index)
+
+    rng = np.random.default_rng(11)
+    src = rng.uniform(10, 90, (3, 61, 83)).astype(np.float32)
+    src[0, 5, 7] = np.nan
+    src[1, :3] = np.inf
+    src[2, 10:12, 20:30] = -np.inf
+    x2 = rng.uniform(-20, 103, (3, 50, 70)).astype(np.float32)
+    y2 = rng.uniform(-20, 81, (3, 50, 70)).astype(np.float32)
+    x2[0, 0, :8] = [np.nan, np.inf, -np.inf, 1e20, -1e20, -3e6, 82.99, 83.0]
+    y2[0, 1, :8] = [np.nan, np.inf, -np.inf, 1e20, -1e20, -3e6, 60.99, 61.0]
+    rand = tuple(torch.as_tensor(a, device=device) for a in (src, x2, y2))
+    err = 0.0
+    for name, args in (("random", rand), ("cross-check", sampled)):
+        v_k, f_k, oob = cuda_sample_nearest(*args)
+        v_p, f_p = sample_nearest_plain(*args)
+        err = max(err, float((v_k - v_p).abs().max()))
+        ok = (torch.equal(v_k, v_p) and torch.equal(f_k, f_p)
+              and float(oob) == 0.0)
+        print(f"sample {name} {tuple(args[1].shape)} from "
+              f"{tuple(args[0].shape)}: values and finite mask equal {ok} "
+              f"({int(f_k.sum())} finite), oob_frac {float(oob)}")
+        if not ok:
+            raise AssertionError(f"sampling kernel disagrees with its plain "
+                                 f"version on the {name} inputs")
+
+    srcs, x2, y2 = sampled
+    n_src, hs, ws = srcs.shape
+    flat = (trunc_index(y2, hs) * ws + trunc_index(x2, ws)).reshape(n_src, -1)
+    ms, call_ms = kernel_ms(lambda: cuda_sample_nearest(srcs, x2, y2), reps,
+                            device, "sample_nearest_kernel")
+    plain_ms = cuda_ms(lambda: sample_nearest_plain(srcs, x2, y2),
+                       plain_reps, device)
+    # the one torch call it replaces: the gather at precomputed indices
+    library_ms, library_call_ms = kernel_ms(
+        lambda: srcs.reshape(n_src, -1).gather(1, flat), reps, device,
+        "gather")
+    n_bytes = srcs.numel() * 4 + x2.numel() * (4 + 4 + 4 + 1)
+    bound_ms, by = bound(n_bytes, 0)
+    print(f"sample: kernel {ms:.4f} ms (call {call_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, torch gather {library_ms:.4f} ms (call "
+          f"{library_call_ms:.4f} ms), bound {bound_ms:.4f} ms ({by}; "
+          f"{n_bytes / 1e6:.1f} MB)")
+    return dict(name="sample_nearest", counter="sample_nearest",
+                route="cuda",
+                source="stereoreconstruction_tpu_torch/csrc/sample_nearest.cu",
+                replaces="stereoreconstruction_tpu/ops/pallas_sample.py:134",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=by, library_ms=library_ms,
+                paths=("mvs", "mvs_mrf", "twoview", "twoview_mrf"))
+
+
+def profile_shimmed(device, title, module, stages, call):
+    """Where one entry-point call's time goes: ``call()`` under
+    torch.profiler, each stage timed by a shim around the module-level
+    function of ``module`` that runs it ({function name: stage name})."""
+    originals = {f: getattr(module, f) for f in stages}
 
     def body(timed):
         def shim(f):
@@ -688,15 +1061,57 @@ def profile_twoview(device, rig2):
                                           lambda: originals[f](*a, **kw))
         try:
             for f in stages:
-                setattr(twoview, f, shim(f))
-            twoview.compute_depth_maps(
-                rgbs[0], masks[0], rgbs[1], masks[1], cams[0], cams[1], cfg,
-                method="kernel", device=device)
+                setattr(module, f, shim(f))
+            call()
         finally:
             for f, fn in originals.items():
-                setattr(twoview, f, fn)
+                setattr(module, f, fn)
 
-    profiled(device, "two-view main path", body)
+    profiled(device, title, body)
+
+
+def profile_twoview(device, rig2, use_mrf):
+    """Where a two-view main path's time goes: one
+    compute_depth_maps(method="kernel") call, WTA or MRF."""
+    from stereoreconstruction_tpu_torch.stereo import twoview
+
+    cams, cfg, rgbs, masks = rig2
+    stages = {"compute_weights": f"weights (kernel 1, r={cfg.window_radius})",
+              "twoview_coords": "coordinate volume",
+              "cuda_warp_bilinear": "warp kernel"}
+    if use_mrf:
+        stages.update(cuda_cost_volume="cost volume kernel",
+                      twoview_bp="BP")
+    else:
+        stages.update(cuda_cost_wta="cost + WTA kernel")
+    stages["cross_check_pair"] = "cross-check"
+    profile_shimmed(
+        device, "two-view MRF main path" if use_mrf
+        else "two-view main path", twoview, stages,
+        lambda: twoview.compute_depth_maps(
+            rgbs[0], masks[0], rgbs[1], masks[1], cams[0], cams[1], cfg,
+            method="kernel", use_mrf=use_mrf, device=device))
+
+
+def profile_mrf(device, rig):
+    """Where the MVS MRF main path's time goes: one mvs_depth_maps call
+    with use_mrf, its stages timed by shims in stereo/multiview.py."""
+    from stereoreconstruction_tpu_torch.stereo import multiview
+
+    cams, cfg, rgbs, masks = rig
+    cfg = dataclasses.replace(cfg, use_mrf=True)
+    stages = {"mvs_kernel_inputs": "weights + windows + coords",
+              "cuda_mvs_topk": "top-K sweep kernel",
+              "trws_optimize": "TRW-S",
+              "labels_to_depth": "labels_to_depth",
+              "mvs_cross_check_all": "cross-check"}
+    iters = []
+    with recording(multiview, "trws_optimize",
+                   lambda _, res: iters.append(res.iterations)):
+        profile_shimmed(device, "MVS MRF main path", multiview, stages,
+                        lambda: multiview.mvs_depth_maps(
+                            rgbs, masks, cams, cfg, device=device))
+    print(f"profile:   TRW-S iterations a view {iters} (sum {sum(iters)})")
 
 
 def nvidia_smi_line():
@@ -749,28 +1164,44 @@ def main():
 
     weight_rows = check_weights(
         device, torch.as_tensor(rig[2][0], device=device),
-        (cfg.window_radius, cfg2.window_radius), reps=10)
-    mvs_rows = [weight_rows[cfg.window_radius],
-                check_sweep(device, rig, reps=10, plain_reps=3)]
+        {cfg.window_radius: ("mvs", "mvs_mrf"),
+         cfg2.window_radius: ("twoview", "twoview_mrf")}, reps=10)
+    inputs, nv = sweep_inputs(device, rig)
+    rows = [weight_rows[cfg.window_radius],
+            check_sweep(device, cfg, inputs, nv, reps=10, plain_reps=3),
+            check_topk(device, cfg, inputs, nv, reps=10, plain_reps=2)]
+    del inputs
+    launches = {}
     with tempfile.TemporaryDirectory() as outdir:
-        launches = main_path(device, rig, true_depth, outdir)
+        launches["mvs"], wta_coverage, sampled = main_path(
+            device, rig, true_depth, outdir)
         profile_main_path(device, rig, outdir)
+    launches["mvs_mrf"] = mrf_main_path(device, rig, true_depth,
+                                        wta_coverage)
+    profile_mrf(device, rig)
 
     tv = twoview_inputs(device, rig2)
     warp_row, warped, wvalid = check_warp(device, tv, reps=10, plain_reps=3)
-    tv_rows = [weight_rows[cfg2.window_radius], warp_row,
-               check_cost(device, tv, warped, wvalid, cfg2, reps=10,
-                          plain_reps=2)]
+    rows += [weight_rows[cfg2.window_radius], warp_row,
+             check_cost(device, tv, warped, wvalid, cfg2, reps=10,
+                        plain_reps=2),
+             check_cost_volume(device, tv, warped, wvalid, cfg2, reps=10,
+                               plain_reps=2)]
     del tv, warped, wvalid
-    launches2 = twoview_main_path(device, rig2, true_depth[:2])
-    profile_twoview(device, rig2)
+    launches["twoview"], wta_coverages = twoview_main_path(
+        device, rig2, true_depth[:2])
+    profile_twoview(device, rig2, use_mrf=False)
+    launches["twoview_mrf"] = twoview_mrf_main_path(
+        device, rig2, true_depth[:2], wta_coverages)
+    profile_twoview(device, rig2, use_mrf=True)
+    rows.append(check_sampler(device, sampled, reps=10, plain_reps=3))
 
-    # a row's launches are its path's run's: each path runs kernel 1 at its
-    # config's one radius, so its kernel-1 launches are that radius's row's
-    for rows, counts in ((mvs_rows, launches), (tv_rows, launches2)):
-        for row in rows:
-            row["launches"] = counts[row["counter"]]
-    rows = mvs_rows + tv_rows
+    # a row's launches: its counter's count over the main paths that run
+    # it, each read right after its own run (kernel 1 has a row for each
+    # radius, and each path runs it at its config's one radius)
+    for row in rows:
+        row["launches"] = sum(launches[p][row["counter"]]
+                              for p in row["paths"])
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -12,8 +12,10 @@ Usage:
 ``stereo`` runs on CUDA unless ``--device`` names another device.  The
 multi-view engine writes ``<image-set>.ply``; ``--two-view`` runs the
 two-view engine on the first two cameras and, as in the JAX package's CLI,
-writes no PLY.  Both write the raw maps with ``--save-npz``; the depth PNGs
-and ``--trace`` of the JAX package's CLI are not ported yet.
+writes no PLY.  ``--mrf`` runs either engine's MRF flow (multi-view: top-K
+hypotheses + TRW-S; two-view: BP over the cost volume).  Both write the raw
+maps with ``--save-npz``; the depth PNGs and ``--trace`` of the JAX
+package's CLI are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,7 +29,6 @@ import numpy as np
 # Options of the JAX package's stereo verb that this port does not run yet,
 # with the part of the port that will bring each.
 _NOT_PORTED = (
-    ("mrf", "--mrf", "the MRF slice"),
     ("resume", "--resume", "the runtime (checkpoint) slice"),
     ("shard", "--shard", "the multi-GPU sharding slice"),
 )
@@ -88,7 +89,8 @@ def cmd_stereo(args):
                             image_scale=args.scale)
         res = compute_depth_maps(
             imgs[0].rgb, imgs[0].mask, imgs[1].rgb, imgs[1].mask, cams[0],
-            cams[1], cfg, method=args.method, device=device)
+            cams[1], cfg, method=args.method, use_mrf=args.mrf,
+            device=device)
         depths = np.stack([res.depth_left.cpu().numpy(),
                            res.depth_right.cpu().numpy()])
     else:
@@ -96,7 +98,7 @@ def cmd_stereo(args):
                               max_depth=args.max_depth,
                               num_depth_levels=args.depth_levels,
                               cross_check_threshold=args.cross_check,
-                              image_scale=args.scale)
+                              image_scale=args.scale, use_mrf=args.mrf)
         depths = mvs_depth_maps(
             np.stack([i.rgb for i in imgs]), np.stack([i.mask for i in imgs]),
             cams, cfg, method=args.method, device=device).cpu().numpy()
@@ -152,7 +154,9 @@ def main(argv=None):
     sp.add_argument("--two-view", action="store_true",
                     help="two-view engine on the first two cameras "
                          "(depth maps only, no PLY)")
-    sp.add_argument("--mrf", action="store_true")
+    sp.add_argument("--mrf", action="store_true",
+                    help="MRF flow: top-K hypotheses + TRW-S (multi-view) "
+                         "or BP over the cost volume (--two-view)")
     sp.add_argument("--resume", action="store_true")
     sp.add_argument("--shard", default=None)
     sp.set_defaults(fn=cmd_stereo)

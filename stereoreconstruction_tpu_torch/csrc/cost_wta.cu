@@ -1,9 +1,11 @@
-// Two-view weighted-NCC cost + sequential WTA over all depths, on Hopper.
+// Two-view weighted-NCC cost + sequential WTA over all depths, on Hopper;
+// or, in its volume mode, every depth's cost.
 //
 // Replaces the TPU kernel stereoreconstruction_tpu/ops/pallas_ncc.py
 // (pallas_cost_wta -> _cost_kernel).  Same function as its plain PyTorch
-// version, ops/cuda_cost_wta.py cost_wta_plain (ops/ncc_fast.py
-// fast_cost_plane + the WTA carry wta_scan): for every
+// versions, ops/cuda_cost_wta.py cost_wta_plain (ops/ncc_fast.py
+// fast_cost_plane + the WTA carry wta_scan) and cost_volume_plain
+// (fast_cost_plane stacked over the labels, the MRF path's input): for every
 // reference pixel and depth label, the (2r+1)^2-tap weighted NCC between the
 // reference gray and the warped plane of the other view, taken in reference
 // space (taps are shifts of the warped plane), turned into the two-view cost
@@ -11,6 +13,8 @@
 // for empty windows, +inf where the pixel's own warp sample is invalid),
 // then the reference's sequential WTA update (twoviewstereo.cpp:320-326):
 // a label wins iff cost + 1e-10 < min; "second" is the previous minimum.
+// The volume mode writes the cost of every (label, pixel) instead, masked
+// pixels included (the MRF smooths across them).
 //
 // Taps are summed with s (rows) outer and t (columns) inner, the order of
 // fast_cost_plane; a tap whose weight, left validity or warp validity fails
@@ -23,7 +27,8 @@
 // products, 7 adds) plus a ~30-operation epilogue a (pixel, label): about
 // 3e10 operations, ~0.45 ms at 67 TFLOP/s.  Bytes: the warped volume and
 // its validity (98 MB) and the 121 weight planes (95 MB), read once:
-// ~0.06 ms.  The bound is the operations.
+// ~0.06 ms.  The bound is the operations.  The volume mode writes D x H x W
+// float32 costs (79 MB, 0.02 ms) besides: still the operations.
 //
 // Design: the TPU kernel kept a row tile's 121 weight planes and its
 // reference windows resident in VMEM across the whole depth sweep and
@@ -35,7 +40,9 @@
 // inside the kernel (the TPU's sequential grid axis): per depth the block
 // stages the warped plane's halo tile and its validity into shared memory,
 // then each thread sums its taps from there.  67 KB of shared memory a
-// block at r = 5 (3 blocks, 12 warps an SM).
+// block at r = 5 (3 blocks, 12 warps an SM).  The volume mode is a template
+// flag: the same arithmetic in the same tap order, so each cost is the one
+// the WTA mode would compare, with one coalesced store a (label, pixel).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -58,7 +65,7 @@ struct Tile {
       (size_t)T * kThreads * sizeof(float) + 2 * NH * sizeof(float) + NH;
 };
 
-template <int R>
+template <int R, bool kVolume>
 __global__ void __launch_bounds__(kThreads)
 cost_wta_kernel(const float* __restrict__ depths,
                 const float* __restrict__ warped,
@@ -157,20 +164,22 @@ cost_wta_kernel(const float* __restrict__ depths,
       v = isnan(v) ? max_color_diff : (v < max_color_diff ? v : max_color_diff);
       cost = have ? v : bad_ret;
     }
-    if (cost + (float)1e-10 < min_c) {
+    if (kVolume) {
+      min_out[(size_t)d * HWp + p] = cost;
+    } else if (cost + (float)1e-10 < min_c) {
       second = min_c;
       min_c = cost;
       best = depths[d];
     }
   }
-  if (inside) {
+  if (!kVolume && inside) {
     min_out[p] = min_c;
     second_out[p] = second;
     best_out[p] = best;
   }
 }
 
-template <int R>
+template <int R, bool kVolume>
 int launch(const float* depths, const float* warped, const uint8_t* wvalid,
            const float* gray_ref, const uint8_t* left_valid,
            const float* weights, float* min_out, float* second_out,
@@ -178,11 +187,11 @@ int launch(const float* depths, const float* warped, const uint8_t* wvalid,
            float bad_ret, cudaStream_t stream) {
   const size_t smem = Tile<R>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      cost_wta_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      cost_wta_kernel<R, kVolume>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH);
-  cost_wta_kernel<R><<<grid, kThreads, smem, stream>>>(
+  cost_wta_kernel<R, kVolume><<<grid, kThreads, smem, stream>>>(
       depths, warped, wvalid, gray_ref, left_valid, weights, min_out,
       second_out, best_out, H, W, D, max_color_diff, bad_ret);
   return (int)cudaGetLastError();
@@ -205,7 +214,24 @@ extern "C" int cost_wta_launch(const float* depths, const float* warped,
                                cudaStream_t stream) {
   // radius 5 is the two-view engine's (TwoViewConfig.window_radius)
   if (radius != 5) return (int)cudaErrorInvalidValue;
-  return launch<5>(depths, warped, wvalid, gray_ref, left_valid, weights,
-                   min_out, second_out, best_out, H, W, D, max_color_diff,
-                   bad_ret, stream);
+  return launch<5, false>(depths, warped, wvalid, gray_ref, left_valid,
+                          weights, min_out, second_out, best_out, H, W, D,
+                          max_color_diff, bad_ret, stream);
+}
+
+// warped [D, H, W] f32; wvalid [D, H, W] bool; gray_ref [H, W] f32;
+// left_valid [H, W] bool; weights [S*S, H, W] f32 -> volume [D, H, W] f32:
+// each label's cost (+inf where the pixel's own warp sample is invalid).
+// Returns the CUDA error of the launch (0 on success).
+extern "C" int cost_volume_launch(const float* warped, const uint8_t* wvalid,
+                                  const float* gray_ref,
+                                  const uint8_t* left_valid,
+                                  const float* weights, float* volume, int H,
+                                  int W, int D, int radius,
+                                  float max_color_diff, float bad_ret,
+                                  cudaStream_t stream) {
+  if (radius != 5) return (int)cudaErrorInvalidValue;
+  return launch<5, true>(nullptr, warped, wvalid, gray_ref, left_valid,
+                         weights, volume, nullptr, nullptr, H, W, D,
+                         max_color_diff, bad_ret, stream);
 }

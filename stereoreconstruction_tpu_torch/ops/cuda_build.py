@@ -24,7 +24,8 @@ from typing import Dict
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent.parent / "build" / "cuda"
-SOURCES = ("geodesic_weights", "mvs_sweep", "warp_bilinear", "cost_wta")
+SOURCES = ("geodesic_weights", "mvs_sweep", "warp_bilinear", "cost_wta",
+           "sample_nearest")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")

@@ -1,9 +1,12 @@
-"""Two-view cost + WTA sweep through the CUDA kernel ``csrc/cost_wta.cu``.
+"""Two-view cost + WTA sweep, and the two-view cost volume, through the
+CUDA kernel ``csrc/cost_wta.cu``.
 
 Replaces the TPU kernel ``stereoreconstruction_tpu/ops/pallas_ncc.py``
-(``pallas_cost_wta``).  ``cost_wta_plain`` is the plain PyTorch version:
-``ops/ncc_fast.py fast_cost_plane`` on each depth's warped plane and the
-sequential WTA carry ``wta_scan``.  The wrapper runs it for CPU tensors and
+(``pallas_cost_wta``).  ``cost_wta_plain`` is the plain PyTorch version of
+the WTA mode: ``ops/ncc_fast.py fast_cost_plane`` on each depth's warped
+plane and the sequential WTA carry ``wta_scan``.  ``cost_volume_plain`` is
+that of the volume mode (the MRF path's input): ``fast_cost_plane`` stacked
+over the labels.  Each wrapper runs its plain version for CPU tensors and
 launches the kernel (or raises) for CUDA tensors.
 """
 
@@ -55,6 +58,49 @@ def cost_wta_plain(depths, warped, wvalid, gray_ref, left_valid, weights, *,
     return wta_scan(cost_at, depths, (h, w), warped.dtype)
 
 
+def cost_volume_plain(warped, wvalid, gray_ref, left_valid, weights, *,
+                      radius: int, max_color_diff: float = 120.0,
+                      bad_ret: float = 1000.0):
+    """Plain PyTorch version of the cost kernel's volume mode: same
+    arguments and result as ``cuda_cost_volume``."""
+    ref = make_ref_view(gray_ref, left_valid, weights, radius)
+    return torch.stack([
+        fast_cost_plane(ref, warped[d], wvalid[d],
+                        max_color_diff=max_color_diff, bad_ret=bad_ret)
+        for d in range(warped.shape[0])])
+
+
+def _check_inputs(warped, wvalid, gray_ref, left_valid, weights, radius,
+                  depths=None):
+    """Raise unless the tensors are what the kernel takes: contiguous
+    float32 / bool on one CUDA device, of matching shapes."""
+    dev = warped.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if radius not in KERNEL_RADII:
+        raise ValueError(f"kernel built for radius {KERNEL_RADII}, "
+                         f"got {radius}")
+    size = 2 * radius + 1
+    n_depths = warped.shape[0] if warped.dim() == 3 else -1
+    h, w = gray_ref.shape
+    expect = {
+        "warped": (warped, torch.float32, (n_depths, h, w)),
+        "wvalid": (wvalid, torch.bool, (n_depths, h, w)),
+        "gray_ref": (gray_ref, torch.float32, (h, w)),
+        "left_valid": (left_valid, torch.bool, (h, w)),
+        "weights": (weights, torch.float32, (size, size, h, w)),
+    }
+    if depths is not None:
+        expect["depths"] = (depths, torch.float32, (n_depths,))
+    for name, (t, dtype, shape) in expect.items():
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor on "
+                             f"{dev}, got {t.dtype} on {t.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got "
+                             f"{tuple(t.shape)}")
+
+
 def cuda_cost_wta(depths, warped, wvalid, gray_ref, left_valid, weights, *,
                   radius: int, max_color_diff: float = 120.0,
                   bad_ret: float = 1000.0):
@@ -72,31 +118,11 @@ def cuda_cost_wta(depths, warped, wvalid, gray_ref, left_valid, weights, *,
         return cost_wta_plain(depths, warped, wvalid, gray_ref, left_valid,
                               weights, radius=radius,
                               max_color_diff=max_color_diff, bad_ret=bad_ret)
-    dev = depths.device
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if radius not in KERNEL_RADII:
-        raise ValueError(f"kernel built for radius {KERNEL_RADII}, "
-                         f"got {radius}")
-    size = 2 * radius + 1
-    n_depths = depths.shape[0] if depths.dim() == 1 else -1
+    _check_inputs(warped, wvalid, gray_ref, left_valid, weights, radius,
+                  depths)
+    dev = warped.device
+    n_depths = warped.shape[0]
     h, w = gray_ref.shape
-    expect = {
-        "depths": (depths, torch.float32, (n_depths,)),
-        "warped": (warped, torch.float32, (n_depths, h, w)),
-        "wvalid": (wvalid, torch.bool, (n_depths, h, w)),
-        "gray_ref": (gray_ref, torch.float32, (h, w)),
-        "left_valid": (left_valid, torch.bool, (h, w)),
-        "weights": (weights, torch.float32, (size, size, h, w)),
-    }
-    for name, (t, dtype, shape) in expect.items():
-        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {dtype} tensor on "
-                             f"{dev}, got {t.dtype} on {t.device}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got "
-                             f"{tuple(t.shape)}")
-
     out = torch.empty((3, h, w), dtype=torch.float32, device=dev)
     fn = cuda_build.library("cost_wta").cost_wta_launch
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
@@ -114,4 +140,39 @@ def cuda_cost_wta(depths, warped, wvalid, gray_ref, left_valid, weights, *,
     return out[0], out[1], out[2]
 
 
+def cuda_cost_volume(warped, wvalid, gray_ref, left_valid, weights, *,
+                     radius: int, max_color_diff: float = 120.0,
+                     bad_ret: float = 1000.0):
+    """Two-view cost volume: every depth label's cost of every pixel.
+
+    The inputs of ``cuda_cost_wta`` without the depths.  Returns the volume
+    [D, H, W]: each label's ``fast_cost_plane`` value, masked pixels
+    included, +inf where the pixel's own warp sample is invalid."""
+    if warped.device.type == "cpu":
+        return cost_volume_plain(warped, wvalid, gray_ref, left_valid,
+                                 weights, radius=radius,
+                                 max_color_diff=max_color_diff,
+                                 bad_ret=bad_ret)
+    _check_inputs(warped, wvalid, gray_ref, left_valid, weights, radius)
+    n_depths = warped.shape[0]
+    h, w = gray_ref.shape
+    volume = torch.empty((n_depths, h, w), dtype=torch.float32,
+                         device=warped.device)
+    fn = cuda_build.library("cost_wta").cost_volume_launch
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(warped.device):
+        rc = fn(warped.data_ptr(), wvalid.data_ptr(), gray_ref.data_ptr(),
+                left_valid.data_ptr(), weights.data_ptr(), volume.data_ptr(),
+                h, w, n_depths, radius, max_color_diff, bad_ret,
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"cost_wta kernel launch (volume mode) failed: "
+                           f"CUDA error {rc}")
+    cuda_cost_volume.launches += 1
+    return volume
+
+
 cuda_cost_wta.launches = 0
+cuda_cost_volume.launches = 0

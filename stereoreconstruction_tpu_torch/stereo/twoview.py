@@ -3,7 +3,9 @@
 Port of ``stereoreconstruction_tpu/stereo/twoview.py`` (the reference's
 ``TwoViewStereo``, stereo/twoviewstereo.cpp): a depth sweep over
 ``t/(5-4t)``-spaced labels with a geodesic-weighted NCC cost, a sequential
-WTA with second-best ambiguity rejection, and the symmetric cross-check.
+WTA with second-best ambiguity rejection (or, with ``use_mrf``, a
+dense-label MRF over the whole cost volume, stereo/mrf.py ``twoview_bp``),
+and the symmetric cross-check.
 
 The WTA carries (minCost, secondBest, bestDepth) with the reference's exact
 sequential update rule (twoviewstereo.cpp:320-326): a label wins only if it
@@ -17,10 +19,15 @@ reference's DepthMap sentinels).
 Methods: ``"kernel"`` (``"auto"``, and the JAX package's ``"fast"`` and
 ``"pallas"``, resolve to it) runs the warp-first cost through three CUDA
 kernels — geodesic weights (ops/cuda_weights.py), the bilinear warp volume
-(ops/cuda_warp.py) and the fused cost + WTA (ops/cuda_cost_wta.py) — which
-run their plain PyTorch versions on the CPU; ``"exact"`` samples the other
-view at each window tap (the reference's ``cost_ncc``) with float64-chain
-geodesic weights.
+(ops/cuda_warp.py) and the fused cost + WTA, or the cost volume for the
+MRF (ops/cuda_cost_wta.py) — which run their plain PyTorch versions on the
+CPU; ``"exact"`` samples the other view at each window tap (the
+reference's ``cost_ncc``) with float64-chain geodesic weights.  The
+cross-check's scattered read goes through the sampling kernel
+(ops/cuda_sample.py).
+
+The JAX package's ``method="pallas"`` returns its WTA map before it reads
+``use_mrf``; here every method honours the flag.
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ from ..config import TwoViewConfig
 from ..device import resolve_device
 from ..geometry.camera import Camera, principal_ray, project, unproject
 from ..geometry.rays import _norm
-from ..ops.cuda_cost_wta import cuda_cost_wta, wta_scan
+from ..ops.cuda_cost_wta import cuda_cost_volume, cuda_cost_wta, wta_scan
+from ..ops.cuda_sample import cuda_sample_nearest
 from ..ops.cuda_warp import cuda_warp_bilinear
 from ..ops.ncc import _left_windows, twoview_cost_plane
 from ..ops.ncc_fast import COORD_SENTINEL
@@ -41,7 +49,8 @@ from ..ops.sampling import sample_valid
 from ..ops.weights import compute_weights
 from .depthsweep import (depth_labels_twoview, match_points, pixel_rays,
                          point_from_depth)
-from .multiview import (_host_distorted, _host_refractive, _trunc_index,
+from .mrf import twoview_bp
+from .multiview import (_host_distorted, _host_refractive,
                         resolve_mvs_method as resolve_method)
 
 
@@ -89,10 +98,11 @@ def twoview_coords(cam_ref: Camera, cam_oth: Camera, cfg: TwoViewConfig,
 
 def _kernel_sweep(rgb_ref, gray_ref, mask_ref, gray_oth, mask_oth,
                   cam_ref: Camera, cam_oth: Camera, cfg: TwoViewConfig, *,
-                  enable_refraction, enable_distortion):
-    """The kernel method's WTA carry (min_cost, second, best): geodesic
-    weights (kernel 1), the coordinate volume, the warp volume (kernel 3)
-    and the fused cost + WTA sweep (kernel 4)."""
+                  enable_refraction, enable_distortion, volume=False):
+    """The kernel method's WTA carry (min_cost, second, best), or with
+    ``volume`` the depth labels and the cost volume (depths, [D, H, W]):
+    geodesic weights (kernel 1), the coordinate volume, the warp volume
+    (kernel 3) and the fused cost sweep (kernel 4, WTA or volume mode)."""
     h, w = gray_ref.shape
     weights = compute_weights(rgb_ref, cfg.window_radius, cfg.weights,
                               exact=False).to(gray_ref.dtype)
@@ -102,11 +112,14 @@ def _kernel_sweep(rgb_ref, gray_ref, mask_ref, gray_oth, mask_oth,
                                     enable_distortion=enable_distortion)
     warped, wvalid, _ = cuda_warp_bilinear(coords, gray_oth.contiguous(),
                                            mask_oth.contiguous())
-    return cuda_cost_wta(
-        depths, warped, wvalid, gray_ref.contiguous(),
-        mask_ref & sample_valid(h, w, gray_ref.device), weights.contiguous(),
-        radius=cfg.window_radius, max_color_diff=cfg.max_color_diff,
-        bad_ret=cfg.bad_ret)
+    args = (warped, wvalid, gray_ref.contiguous(),
+            mask_ref & sample_valid(h, w, gray_ref.device),
+            weights.contiguous())
+    kw = dict(radius=cfg.window_radius, max_color_diff=cfg.max_color_diff,
+              bad_ret=cfg.bad_ret)
+    if volume:
+        return depths, cuda_cost_volume(*args, **kw)
+    return cuda_cost_wta(depths, *args, **kw)
 
 
 def _build_cost_fn(rgb_ref, gray_ref, mask_ref, gray_oth, mask_oth,
@@ -138,22 +151,48 @@ def _build_cost_fn(rgb_ref, gray_ref, mask_ref, gray_oth, mask_oth,
     return cost_at, depths
 
 
-def _check_supported(cfg: TwoViewConfig, use_mrf: bool):
-    if use_mrf:
-        raise NotImplementedError(
-            "use_mrf (twoview_bp over the dense cost volume) is not ported "
-            "to PyTorch yet: it comes with the MRF slice (ROADMAP.md)")
+def _check_supported(cfg: TwoViewConfig):
     if cfg.cost != "ncc":
         raise NotImplementedError(
             f"cost {cfg.cost!r} is not ported to PyTorch yet: the SAD cost "
             "comes with a later two-view slice (ROADMAP.md)")
 
 
-def twoview_cost_volume(*args, **kwargs):
-    """The dense [D, H, W] cost volume (the reference's USE_MRF input)."""
-    raise NotImplementedError(
-        "twoview_cost_volume is not ported to PyTorch yet: it comes with the "
-        "MRF slice (ROADMAP.md)")
+def _device_args(rgb_ref, gray_ref, mask_ref, gray_oth, mask_oth,
+                 cam_ref: Camera, cam_oth: Camera, device):
+    """The one-view inputs as tensors on the resolved device, in the dtype
+    of ``gray_ref`` (masks bool)."""
+    dev = resolve_device(device)
+    gray_ref = torch.as_tensor(gray_ref, device=dev)
+    dtype = gray_ref.dtype
+    return (torch.as_tensor(rgb_ref, dtype=dtype, device=dev), gray_ref,
+            torch.as_tensor(mask_ref, dtype=torch.bool, device=dev),
+            torch.as_tensor(gray_oth, dtype=dtype, device=dev),
+            torch.as_tensor(mask_oth, dtype=torch.bool, device=dev),
+            cam_ref.to(dev, dtype), cam_oth.to(dev, dtype))
+
+
+def twoview_cost_volume(rgb_ref, gray_ref, mask_ref, gray_oth, mask_oth,
+                        cam_ref: Camera, cam_oth: Camera, cfg: TwoViewConfig,
+                        *, enable_refraction: bool = True,
+                        enable_distortion: bool = True,
+                        method: str = "kernel", device=None):
+    """The dense two-view cost volume [D, H, W] and the depth labels [D]:
+    the tensor the reference's USE_MRF path feeds to graph-cut
+    (twoviewstereo.cpp:335-403).  The kernel method writes it with the cost
+    kernel's volume mode; the exact method stacks its cost planes.  Masked
+    pixels carry costs too; +inf where a pixel's match sample is invalid."""
+    _check_supported(cfg)
+    args = _device_args(rgb_ref, gray_ref, mask_ref, gray_oth, mask_oth,
+                        cam_ref, cam_oth, device) + (cfg,)
+    kw = dict(enable_refraction=enable_refraction,
+              enable_distortion=enable_distortion)
+    if resolve_method(method) == "kernel":
+        depths, volume = _kernel_sweep(*args, volume=True, **kw)
+        return volume, depths
+    cost_at, depths = _build_cost_fn(*args, **kw)
+    return torch.stack([cost_at(d)[0] for d in range(depths.shape[0])]), \
+        depths
 
 
 def compute_depth_map_oneview(
@@ -166,20 +205,32 @@ def compute_depth_map_oneview(
     rgb_ref [H, W, 3]; gray/masks [H, W]; the dtype of ``gray_ref`` sets the
     sweep's dtype (the kernel method runs in float32).  Returns depth
     [H, W] on ``device`` (CUDA unless the caller names another), with NaN
-    where masked and +inf where rejected."""
-    _check_supported(cfg, use_mrf)
+    where masked and +inf where rejected.
+
+    ``use_mrf``: the depth of each pixel's ``twoview_bp`` label over the
+    cost volume (``cfg.smoothness_*``), NaN where masked; no second-best
+    rejection on this path."""
+    _check_supported(cfg)
     method = resolve_method(method)
-    dev = resolve_device(device)
-    gray_ref = torch.as_tensor(gray_ref, device=dev)
+    args = _device_args(rgb_ref, gray_ref, mask_ref, gray_oth, mask_oth,
+                        cam_ref, cam_oth, device) + (cfg,)
+    gray_ref, mask_ref = args[1], args[2]
     dtype = gray_ref.dtype
-    rgb_ref = torch.as_tensor(rgb_ref, dtype=dtype, device=dev)
-    mask_ref = torch.as_tensor(mask_ref, dtype=torch.bool, device=dev)
-    gray_oth = torch.as_tensor(gray_oth, dtype=dtype, device=dev)
-    mask_oth = torch.as_tensor(mask_oth, dtype=torch.bool, device=dev)
-    args = (rgb_ref, gray_ref, mask_ref, gray_oth, mask_oth,
-            cam_ref.to(dev, dtype), cam_oth.to(dev, dtype), cfg)
     kw = dict(enable_refraction=enable_refraction,
               enable_distortion=enable_distortion)
+
+    if use_mrf:
+        # Dense-label MRF over the cost volume (the reference's USE_MRF
+        # graph-cut path, twoviewstereo.cpp:335-403) via min-sum BP with
+        # truncated-linear smoothness.
+        volume, depths = twoview_cost_volume(*args, method=method,
+                                             device=gray_ref.device, **kw)
+        labels, _ = twoview_bp(volume,
+                               smoothness_lambda=cfg.smoothness_lambda,
+                               smoothness_max=cfg.smoothness_max,
+                               smoothness_exp=cfg.smoothness_exp)
+        best = depths[labels.to(torch.int64)]
+        return torch.where(mask_ref, best, torch.nan)
 
     if method == "kernel":
         min_cost, second, best = _kernel_sweep(*args, **kw)
@@ -223,8 +274,10 @@ def cross_check_direction(depth_a, depth_b, cam_a: Camera, cam_b: Camera,
     y2 = xy_full[..., 1] * image_scale
 
     contains = (x2 >= 0) & (y2 >= 0) & (x2 < wb) & (y2 < hb)
-    odepth = depth_b[_trunc_index(y2, hb), _trunc_index(x2, wb)]
-    ofinite = torch.isfinite(odepth)
+    # the scattered depth_b[iy, ix] read: the sampling kernel
+    odepth, ofinite, _ = cuda_sample_nearest(depth_b.contiguous()[None],
+                                             x2[None], y2[None])
+    odepth, ofinite = odepth[0], ofinite[0]
     odepth_safe = torch.where(ofinite, odepth, 1.0)
 
     # the reference unprojects at the *float* scaled coords + 0.5
@@ -266,8 +319,8 @@ def compute_depth_maps(rgb_l, mask_l, rgb_r, mask_r, cam_l: Camera,
     rgb_*: [H, W, 3] (0..255) already scaled to working size; mask_*:
     [H, W] bool; cameras on any device and dtype (cast to ``dtype``).
     Returns both depth maps on ``device`` (CUDA unless the caller names
-    another)."""
-    _check_supported(cfg, use_mrf)
+    another); ``use_mrf`` as in ``compute_depth_map_oneview``."""
+    _check_supported(cfg)
     method = resolve_method(method)
     dev = resolve_device(device)
     rgb_l = torch.as_tensor(rgb_l, dtype=dtype, device=dev)
@@ -289,10 +342,10 @@ def compute_depth_maps(rgb_l, mask_l, rgb_r, mask_r, cam_l: Camera,
 
     depth_l = compute_depth_map_oneview(
         rgb_l, gray_l, mask_l, gray_r, mask_r, cam_l, cam_r, cfg,
-        method=method, device=dev, **kw)
+        method=method, use_mrf=use_mrf, device=dev, **kw)
     depth_r = compute_depth_map_oneview(
         rgb_r, gray_r, mask_r, gray_l, mask_l, cam_r, cam_l, cfg,
-        method=method, device=dev, **kw)
+        method=method, use_mrf=use_mrf, device=dev, **kw)
     if cross_check:
         depth_l, depth_r = cross_check_pair(depth_l, depth_r, cam_l, cam_r,
                                             cfg, **kw)

@@ -109,8 +109,54 @@ def test_cli_two_view_writes_library_depths(project, capsys):
     assert np.isfinite(want).mean() > 0.3
 
 
-@pytest.mark.parametrize("flag", [["--mrf"], ["--resume"],
-                                  ["--shard", "depth"]])
+def test_cli_stereo_mrf_writes_library_ply(project):
+    """``stereo --mrf`` runs the multi-view MRF flow (top-K + TRW-S +
+    cross-check): the npz holds the library call's maps, and the PLY is
+    written."""
+    path = str(project / "p.xml")
+    out = project / "out_mrf"
+    npz = str(project / "mrf.npz")
+    assert cli.main(["stereo", path, "-o", str(out), "--save-npz", npz,
+                     "--mrf"] + ARGS + ["--depth-levels", "12"]) == 0
+    pts, _ = read_ply(str(out / "scene.ply"))
+
+    proj = load_project(path)
+    cams = [proj.cameras[c].to_camera() for c in sorted(proj.cameras)]
+    imgs = [load_image(str(project / f"c{i}.png"), 0.5) for i in range(3)]
+    cfg = MultiViewConfig(min_depth=40.0, max_depth=80.0,
+                          num_depth_levels=12, cross_check_threshold=0.5,
+                          image_scale=0.5, use_mrf=True)
+    depths = mvs_depth_maps(np.stack([im.rgb for im in imgs]),
+                            np.stack([im.mask for im in imgs]), cams, cfg,
+                            device="cpu")
+    np.testing.assert_array_equal(np.load(npz)["depths"], depths.numpy())
+    assert len(pts) > 50 and np.isfinite(pts).all()
+
+
+def test_cli_two_view_mrf_writes_library_depths(project, capsys):
+    """``stereo --two-view --mrf``: BP over each view's cost volume, then
+    the cross-check; the npz holds the library call's two maps."""
+    path = str(project / "p.xml")
+    npz = str(project / "two_mrf.npz")
+    assert cli.main(["stereo", path, "-o", str(project / "out3"),
+                     "--save-npz", npz, "--two-view", "--mrf"]
+                    + ARGS + ["--depth-levels", "6"]) == 0
+    assert "cam1:" in capsys.readouterr().out
+
+    proj = load_project(path)
+    cams = [proj.cameras[c].to_camera() for c in ("cam0", "cam1")]
+    imgs = [load_image(str(project / f"c{i}.png"), 0.5) for i in range(2)]
+    cfg = TwoViewConfig(min_depth=40.0, max_depth=80.0, num_depth_levels=6,
+                        image_scale=0.5)
+    res = compute_depth_maps(imgs[0].rgb, imgs[0].mask, imgs[1].rgb,
+                             imgs[1].mask, cams[0], cams[1], cfg,
+                             use_mrf=True, device="cpu")
+    want = np.stack([res.depth_left.numpy(), res.depth_right.numpy()])
+    np.testing.assert_array_equal(np.load(npz)["depths"], want)
+    assert np.isfinite(want).any()
+
+
+@pytest.mark.parametrize("flag", [["--resume"], ["--shard", "depth"]])
 def test_cli_stereo_refuses_unported_options(project, capsys, flag):
     path = str(project / "p.xml")
     assert cli.main(["stereo", path, "-o", str(project / "x")] + ARGS

@@ -25,7 +25,9 @@ def test_importing_every_module_loads_no_jax():
     assert {"stereoreconstruction_tpu_torch.stereo.multiview",
             "stereoreconstruction_tpu_torch.stereo.twoview",
             "stereoreconstruction_tpu_torch.ops.cuda_warp",
-            "stereoreconstruction_tpu_torch.ops.cuda_cost_wta"} <= set(mods)
+            "stereoreconstruction_tpu_torch.ops.cuda_cost_wta",
+            "stereoreconstruction_tpu_torch.ops.cuda_sample",
+            "stereoreconstruction_tpu_torch.stereo.mrf"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

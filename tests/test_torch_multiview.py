@@ -75,3 +75,63 @@ def test_point_cloud_matches_jax():
     assert got_pts.shape == want_pts.shape
     np.testing.assert_allclose(got_pts, want_pts, rtol=0, atol=1e-6)
     np.testing.assert_array_equal(got_rgb, want_rgb)
+
+
+# --------------------------------------------------------------------------
+# The MRF flow (cfg.use_mrf): top-K hypotheses + TRW-S + labels_to_depth,
+# then the cross-check
+# --------------------------------------------------------------------------
+
+MRF_KW = dict(REFR_KW, num_depth_levels=12, use_mrf=True)
+
+
+def _mrf_scene():
+    cams, rgbs, masks = _refractive_scene()
+    masks[0, 20:26, 30:42] = False
+    masks[2, 50:56, 10:16] = False
+    return cams, rgbs, masks
+
+
+@pytest.mark.parametrize("cross_check", [False, True])
+def test_mrf_depth_maps_match_jax(cross_check):
+    """The kernel method's MRF flow against JAX ``exact`` in float32: the
+    same class (NaN, +inf, finite) and depth (test_torch_mvs.
+    depth_agreement) on >= 99% of pixels.  A float32 near-tie in one
+    pixel's hypothesis list (test_torch_mvs: 4 of 5,120 pixels) changes
+    that pixel's data term, and the MRF can carry the change to a few
+    neighbours."""
+    cams, rgbs, masks = _mrf_scene()
+    want = np.asarray(jmv.mvs_depth_maps(
+        rgbs, masks, cams, JConfig(**MRF_KW), cross_check=cross_check,
+        method="exact", dtype=jnp.float32))
+    got = tmv.mvs_depth_maps(rgbs, masks, port_cameras(cams),
+                             TConfig(**MRF_KW), cross_check=cross_check,
+                             device="cpu").numpy()
+    same = depth_agreement(got, want)
+    print(f"MRF cross_check={cross_check}: {(~same).sum()} of {same.size} "
+          f"pixels differ")
+    assert same.mean() >= 0.99
+    # masked pixels are inf in both
+    assert np.isinf(got[~masks]).all() and np.isinf(want[~masks]).all()
+    # at 12 labels (3.6 depth units apart) the check at 0.5 keeps ~19%
+    assert np.isfinite(want).mean() > (0.1 if cross_check else 0.5)
+    if cross_check:
+        assert np.isnan(want).any()
+
+
+def test_mrf_exact_matches_jax_exact_float64():
+    """The exact method's MRF flow with the cross-check in float64: every
+    pixel in the same class, finite depths within 1e-12 relative."""
+    cams, rgbs, masks = _mrf_scene()
+    want = np.asarray(jmv.mvs_depth_maps(
+        rgbs, masks, cams, JConfig(**MRF_KW), method="exact",
+        dtype=jnp.float64))
+    got = tmv.mvs_depth_maps(rgbs, masks, port_cameras(cams),
+                             TConfig(**MRF_KW), method="exact",
+                             dtype=torch.float64, device="cpu").numpy()
+    assert got.dtype == np.float64
+    for cls in (np.isnan, np.isinf, np.isfinite):
+        np.testing.assert_array_equal(cls(got), cls(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-12, atol=0)
+    assert fin.mean() > 0.1 and np.isnan(want).any()

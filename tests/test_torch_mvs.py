@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 from stereoreconstruction_tpu.geometry import make_camera
@@ -22,9 +23,10 @@ from stereoreconstruction_tpu_torch import config as tconfig
 from stereoreconstruction_tpu_torch.geometry.camera import (
     camera_from_numpy, stack_cameras)
 from stereoreconstruction_tpu_torch.ops.cuda_mvs import (
-    cuda_mvs_wta, mvs_wta_plain)
+    cuda_mvs_topk, cuda_mvs_wta, mvs_topk_plain, mvs_wta_plain)
 from stereoreconstruction_tpu_torch.stereo import multiview as tmv
 
+from synth import converging_rig, render_scene
 from test_multiview import make_rig, CFG
 
 torch.set_num_threads(1)
@@ -150,3 +152,152 @@ def test_wrapper_runs_plain_version_on_cpu(rng):
     np.testing.assert_array_equal(dep.numpy(), pd.numpy())
     assert float(n[1, 2]) == -np.inf and float(dep[1, 2]) == -1.0
     assert set(np.unique(dep.numpy())) <= {-1.0, *depths[1:].tolist()}
+
+
+# --------------------------------------------------------------------------
+# Top-K mode (the MRF path's hypothesis volume)
+# --------------------------------------------------------------------------
+
+TOPK_KW = dict(min_depth=40.0, max_depth=80.0, num_depth_levels=16,
+               image_scale=1.0)
+
+
+@pytest.fixture(scope="module")
+def topk_rig():
+    """The 3-view refractive rig at 64x80 with holes in the masks; view 1
+    against its two neighbours padded to three (the pad slot masked by
+    nbr_valid)."""
+    cams = converging_rig(3, refractive=True, h=64, w=80)
+    rgbs, masks, _ = render_scene(cams, 64, 80)
+    masks[1, 10:14, 30:40] = False
+    masks[0, 40:44, 5:15] = False
+    nbr = jmv.select_neighbours(cams, CFG)[1]
+    assert len(nbr) == 2
+    return cams, rgbs, masks, nbr + [nbr[0]], np.array([True, True, False])
+
+
+def _topk_args(topk_rig, ndt):
+    cams, rgbs, masks, nbr, valid = topk_rig
+    grays = 0.11 * rgbs[..., 0] + 0.59 * rgbs[..., 1] + 0.3 * rgbs[..., 2]
+    return (rgbs[1].astype(ndt), grays[1].astype(ndt), masks[1],
+            grays[nbr].astype(ndt), masks[nbr]), nbr, valid
+
+
+def _jax_topk(topk_rig, method, jdt, with_topk=True):
+    cams, _, _, nbr, valid = topk_rig
+    arrays, nbr, valid = _topk_args(topk_rig, np.dtype(jdt))
+    cams_j = [c.astype(jdt) for c in cams]
+    cams_nbr = jax.tree.map(lambda *xs: jnp.stack(xs),
+                            *[cams_j[j] for j in nbr])
+    out = jmv.mvs_initial_estimate_oneview(
+        *(jnp.asarray(a) for a in arrays), cams_j[1], cams_nbr,
+        dataclasses.replace(CFG, **TOPK_KW), len(nbr),
+        enable_refraction=True, enable_distortion=False, method=method,
+        with_topk=with_topk, nbr_valid=jnp.asarray(valid))
+    return tuple(np.asarray(a) for a in out) if with_topk \
+        else np.asarray(out)
+
+
+def _port_topk(topk_rig, method, tdt, with_topk=True):
+    cams, _, _, nbr, valid = topk_rig
+    ndt = torch.empty((), dtype=tdt).numpy().dtype
+    arrays, nbr, valid = _topk_args(topk_rig, ndt)
+    tcams = port_cameras(cams, dtype=tdt)
+    out = tmv.mvs_initial_estimate_oneview(
+        *arrays, tcams[1], stack_cameras([tcams[j] for j in nbr]),
+        dataclasses.replace(TCFG, **TOPK_KW), enable_refraction=True,
+        enable_distortion=False, method=method, nbr_valid=valid,
+        with_topk=with_topk, device="cpu")
+    return tuple(a.numpy() for a in out) if with_topk else out.numpy()
+
+
+def _sets_by_depth(ncc, depth):
+    """Each pixel's hypotheses ordered by depth (ties by ncc)."""
+    order = np.lexsort((ncc, depth), axis=0)
+    return (np.take_along_axis(ncc, order, 0),
+            np.take_along_axis(depth, order, 0))
+
+
+def test_topk_matches_jax_exact_float32(topk_rig):
+    """The kernel method's top-K lists (the plain version of the sweep
+    kernel's top-K mode) against JAX ``exact`` in float32, the reference
+    the JAX package holds its Pallas top-K kernel to
+    (tests/test_pallas_mvs.py): per-pixel depth sets equal on >= 99.9% of
+    pixels (a depth within 1e-5 relative, one float32 ulp of a label; an
+    FMA-rounded NCC may swap two near-equal peaks at the bottom of a full
+    list), and the NCCs of matched entries within 1e-4.  JAX ``fast`` is
+    no reference here: on this rig its banded nearest warp gives other
+    lists than JAX ``exact`` on 8.8% of the pixels (ROADMAP.md §C)."""
+    jn, jd = _sets_by_depth(*_jax_topk(topk_rig, "exact", jnp.float32))
+    tn, td = _sets_by_depth(*_port_topk(topk_rig, "kernel", torch.float32))
+    assert td.shape == (9, 64, 80) and td.dtype == np.float32
+    close = np.isclose(td, jd, rtol=1e-5, atol=0)
+    same = close.all(axis=0)
+    print(f"top-K sets differ on {(~same).sum()} of {same.size} pixels; "
+          f"{int((jd > 0).sum())} peaks")
+    assert same.mean() >= 0.999
+    peaks = close & (jd > 0)
+    assert peaks.sum() > 5 * same.size      # most pixels carry several
+    np.testing.assert_allclose(tn[peaks], jn[peaks], rtol=0, atol=1e-4)
+    # masked pixels carry hypotheses too, no-peak slots (0, -1)
+    assert (jd[:, ~topk_rig[2][1]] > 0).any()
+    np.testing.assert_array_equal(tn[td < 0], 0.0)
+
+
+def test_topk_exact_matches_jax_exact_float64(topk_rig):
+    """The exact method's top-K lists in float64: the same list at every
+    pixel, entry for entry (depths within 1e-12 relative, the label
+    formula's FMA in XLA; NCCs within 1e-12)."""
+    jn, jd = _jax_topk(topk_rig, "exact", jnp.float64)
+    tn, td = _port_topk(topk_rig, "exact", torch.float64)
+    assert td.dtype == np.float64
+    np.testing.assert_allclose(td, jd, rtol=1e-12, atol=0)
+    np.testing.assert_allclose(tn, jn, rtol=0, atol=1e-12)
+    assert (jd > 0).sum() > 5 * jd[0].size
+
+
+def test_topk_last_entry_is_the_wta_map(topk_rig):
+    """Finalising each pixel's last (largest) hypothesis as the WTA
+    finalises its carry reproduces the port's WTA map exactly."""
+    top_n, top_d = _port_topk(topk_rig, "kernel", torch.float32)
+    wta = _port_topk(topk_rig, "kernel", torch.float32, with_topk=False)
+    last = np.where(top_n[-1] > CFG.ncc_threshold, top_d[-1], -1.0)
+    np.testing.assert_array_equal(np.where(topk_rig[2][1], last, np.inf),
+                                  wta)
+    assert (wta > 0).mean() > 0.5
+
+
+def test_topk_wrapper_runs_plain_version_on_cpu(rng):
+    """On CPU tensors the top-K wrapper returns its plain version's lists,
+    oob_frac 0, and launches nothing; a K=1 list finalises to the WTA
+    carry's map."""
+    n_nbr, h, w, d, size = 2, 6, 7, 12, 5
+    depths = torch.linspace(10.0, 20.0, d)
+    coords = torch.as_tensor(rng.uniform(-3, 9, (d - 1, n_nbr, 2, h, w)),
+                             dtype=torch.float32)
+    coords[0, 0, :, 0, 0] = -3e6
+    gray_nbr = torch.as_tensor(rng.uniform(0, 255, (n_nbr, 8, 9)),
+                               dtype=torch.float32)
+    gl = torch.as_tensor(rng.uniform(0, 255, (size * size, h, w)),
+                         dtype=torch.float32)
+    lv = torch.as_tensor(rng.uniform(size=(size * size, h, w)) > 0.1)
+    weights = torch.as_tensor(rng.uniform(size=(size * size, h, w)),
+                              dtype=torch.float32)
+    args = (depths, coords, gray_nbr, gl, lv, weights,
+            torch.tensor([True, False]))
+    kw = dict(radius=2, thr=-0.5, label0=1)
+    launches = cuda_mvs_topk.launches
+    n, dep, oob = cuda_mvs_topk(*args, top_k=4, **kw)
+    pn, pd = mvs_topk_plain(*args, top_k=4, **kw)
+    assert cuda_mvs_topk.launches == launches and float(oob) == 0.0
+    assert n.shape == (4, h, w)
+    np.testing.assert_array_equal(n.numpy(), pn.numpy())
+    np.testing.assert_array_equal(dep.numpy(), pd.numpy())
+    assert bool((n[1:] >= n[:-1]).all())                # ascending
+    assert set(np.unique(dep.numpy())) <= {-1.0, *depths[1:].tolist()}
+    n1, d1 = mvs_topk_plain(*args, top_k=1, **kw)
+    wn, wd = mvs_wta_plain(*args, **kw)
+    np.testing.assert_array_equal(n1[0].numpy(), wn.numpy())
+    np.testing.assert_array_equal(
+        tmv.mvs_finalize_wta(n1[0], d1[0], torch.ones(h, w, dtype=bool)),
+        tmv.mvs_finalize_wta(wn, wd, torch.ones(h, w, dtype=bool)))

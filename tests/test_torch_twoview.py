@@ -168,12 +168,106 @@ def test_unported_options_raise():
     cams, rgbs, masks, _ = _scene(False)
     tcams = port_cameras(cams)
     args = (rgbs[0], masks[0], rgbs[1], masks[1], tcams[0], tcams[1])
-    with pytest.raises(NotImplementedError, match="MRF slice"):
-        ttv.compute_depth_maps(*args, TConfig(), use_mrf=True, device="cpu")
     with pytest.raises(NotImplementedError, match="SAD"):
         ttv.compute_depth_maps(*args, TConfig(cost="sad"), device="cpu")
-    with pytest.raises(NotImplementedError, match="MRF slice"):
-        ttv.twoview_cost_volume()
+    with pytest.raises(NotImplementedError, match="SAD"):
+        ttv.compute_depth_maps(*args, TConfig(cost="sad"), use_mrf=True,
+                               device="cpu")
     with pytest.raises(ValueError, match="unknown stereo method"):
         ttv.compute_depth_maps(*args, TConfig(), method="bogus",
                                device="cpu")
+
+
+# --------------------------------------------------------------------------
+# The MRF path (use_mrf): BP over each view's cost volume
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_mrf_depth_maps_match_jax_fast(name):
+    """``compute_depth_maps(use_mrf=True)`` (the kernel method: the warp
+    and the cost kernel's volume mode, then twoview_bp) against JAX
+    ``method="fast"``, before and after the cross-check: the same class on
+    >= 99% of pixels and finite depths within 1e-5 relative on >= 99% of
+    the pixels finite in both.  The FMA-rounded costs (see above) move
+    some unary terms in their last bits, which can flip a near-tie
+    between two labels, and BP can carry a flip to a few neighbours."""
+    refractive, radius, labels = CASES[name]
+    cams, rgbs, masks, true_d = _scene(refractive)
+    args = (rgbs[0], masks[0], rgbs[1], masks[1])
+    kw = _kw(radius, labels)
+    tcams = port_cameras(cams)
+    for cc in (False, True):
+        want = jtv.compute_depth_maps(*args, cams[0], cams[1], JConfig(**kw),
+                                      cross_check=cc, method="fast",
+                                      use_mrf=True, dtype=jnp.float32)
+        got = ttv.compute_depth_maps(*args, tcams[0], tcams[1],
+                                     TConfig(**kw), cross_check=cc,
+                                     use_mrf=True, device="cpu")
+        for side, g, w, m in zip(("left", "right"), got, want, masks):
+            g, w = g.numpy(), np.asarray(w)
+            cls, close, n_cls, n_far = agreement(g, w)
+            print(f"{name} MRF cross_check={cc} {side}: classes differ on "
+                  f"{n_cls}, finite depths on {n_far} of {g.size} pixels")
+            assert cls >= 0.99 and close >= 0.99
+            np.testing.assert_array_equal(np.isnan(g), ~m)
+            if not cc:      # BP labels every unmasked pixel
+                assert np.isfinite(w[m]).all()
+    step = (80.0 - 45.0) / (labels - 1)
+    fin = np.isfinite(g)
+    assert np.median(np.abs(g - true_d[1])[fin]) < step
+
+
+def test_mrf_exact_matches_jax_exact_float64():
+    """The exact method's MRF path in float64 on a refractive pair
+    (radius 2, 6 labels): every pixel in the same class with the same
+    depth (1e-9 relative)."""
+    cams, rgbs, masks, _ = _scene(True)
+    kw = _kw(2, 6)
+    args = (rgbs[0], masks[0], rgbs[1], masks[1])
+    want = jtv.compute_depth_maps(*args, cams[0], cams[1], JConfig(**kw),
+                                  method="exact", use_mrf=True,
+                                  dtype=jnp.float64)
+    tcams = port_cameras(cams)
+    got = ttv.compute_depth_maps(*args, tcams[0], tcams[1], TConfig(**kw),
+                                 method="exact", use_mrf=True,
+                                 dtype=torch.float64, device="cpu")
+    for g, w in zip(got, want):
+        g, w = g.numpy(), np.asarray(w)
+        assert g.dtype == np.float64
+        np.testing.assert_array_equal(_classes(g), _classes(w))
+        fin = np.isfinite(w)
+        np.testing.assert_allclose(g[fin], w[fin], rtol=1e-9, atol=0)
+        assert fin.mean() > 0.3
+
+
+def test_cost_volume_matches_jax_fast():
+    """``twoview_cost_volume`` (kernel method) against JAX's (``fast``),
+    masked pixels included: the same +inf entries, costs within 0.05 and
+    within 2e-3 on average.  Each side projects its own match coordinates
+    in float32, and XLA's FMAs put them up to 2.7e-5 px apart on this
+    rig; the cost 255 * (1 - |ncc|) turns that into differences of up to
+    a few hundredths where the texture is steep (on shared coordinates
+    the costs agree within 1e-4: test_torch_warp_cost.py)."""
+    cams, rgbs, masks, _ = _scene(True)
+    kw = _kw(3, 8)
+    gray = (0.11 * rgbs[..., 0] + 0.59 * rgbs[..., 1]
+            + 0.3 * rgbs[..., 2]).astype(np.float32)
+    jc = [c.astype(jnp.float32) for c in cams]
+    want, want_d = jtv.twoview_cost_volume(
+        jnp.asarray(rgbs[0]), jnp.asarray(gray[0]), jnp.asarray(masks[0]),
+        jnp.asarray(gray[1]), jnp.asarray(masks[1]), jc[0], jc[1],
+        JConfig(**kw), enable_distortion=False)
+    tc = [c.to("cpu", torch.float32) for c in port_cameras(cams)]
+    got, got_d = ttv.twoview_cost_volume(
+        rgbs[0], gray[0], masks[0], gray[1], masks[1], tc[0], tc[1],
+        TConfig(**kw), enable_distortion=False, device="cpu")
+    want = np.asarray(want)
+    assert got.shape == want.shape == (8, H, W)
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), rtol=1e-6)
+    np.testing.assert_array_equal(np.isinf(got.numpy()), np.isinf(want))
+    fin = np.isfinite(want)
+    diff = np.abs(got.numpy()[fin] - want[fin])
+    print(f"cost volume: max |diff| {diff.max():.3g}, mean {diff.mean():.3g}")
+    assert diff.max() <= 0.05 and diff.mean() <= 2e-3
+    # masked pixels carry costs (BP smooths across them)
+    assert np.isfinite(want[:, ~masks[0]]).any()
