@@ -9,16 +9,21 @@ Phases; any failure raises, and the script exits non-zero:
 
 1. require CUDA; print the device and nvidia-smi's name and power limit;
 2. build the five CUDA kernels from csrc/ (one nvcc per source, in
-   parallel);
+   parallel); print each kernel's registers, spills and static shared
+   memory from ptxas, and kernel 1's dynamic shared memory;
 3. kernel 1 (geodesic weights) against its plain PyTorch version at
    384x512, radius 2 (the MVS paths) and radius 5 (the two-view paths),
-   max |diff| <= 2e-5; CUDA-event times;
+   and on a ragged 61x83 stress image with a holed validity plane, max
+   |diff| <= 2e-5; times;
 4. kernel 2 (MVS sweep) against its plain versions on one view at 384x512,
    100 labels, 3 neighbours.  WTA mode (K = 1): best_depth agrees on
    >= 99.9% of pixels, |best_ncc diff| <= 1e-5 where both are finite,
    oob_frac == 0.  Top-K mode (K = 9): each pixel's depth set agrees on
    >= 99.9% of pixels, |ncc diff| <= 1e-5 on matched entries, oob_frac
-   == 0, and the last entry finalises to the WTA kernel's map; times;
+   == 0, and the last entry finalises to the WTA kernel's map.  Both
+   modes bit-equal on a stress input (a ragged 61x83 reference against
+   100x120 neighbours, coordinates across every border and sentinels,
+   holed left masks, a padded neighbour); times;
 5. the MVS main path (the ``cli stereo`` library calls): mvs_depth_maps ->
    depth_maps_to_ply -> write_ply on an 8-view refractive rig rendered
    analytically in numpy at 384x512 (K sized for 768x1024, image_scale 0.5),
@@ -75,6 +80,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import tempfile
@@ -257,52 +263,96 @@ def geodesic_ops(radius, iters=3):
 
 
 def sweep_counts(inputs, nbr_valid, radius, every_pixel=False):
-    """(valid taps, evaluated units) of the sweep on these inputs: a unit
-    is a (pixel, label, neighbour) with a valid centre (any centre with
-    ``every_pixel``, as the top-K mode sweeps), base sample and neighbour;
-    a tap is valid under the kernel's bounds and left mask."""
+    """The work of the sweep on these inputs, split as the kernel splits
+    it: (interior taps, border taps, interior units, border units, swept
+    pixels, left-mask taps).  A unit is a (pixel, label, neighbour) with a
+    valid centre (any centre with ``every_pixel``, as the top-K mode
+    sweeps), base sample and neighbour; it is interior when its whole window
+    lies unclamped in the neighbour image.  A tap is valid under the
+    kernel's bounds and left mask."""
     coords, gray = inputs["coords"], inputs["gray_nbr"]
     hs, ws = gray.shape[1:]
-    lmask = (inputs["lv"] & (inputs["weights"] > 1e-10)).reshape(
-        2 * radius + 1, 2 * radius + 1, 1, *inputs["lv"].shape[1:])
-    keep = nbr_valid[:, None, None] & (
-        True if every_pixel else inputs["center_valid"][None])
+    lmask = inputs["lv"] & (inputs["weights"] > 1e-10)
+    swept = torch.ones_like(lmask[0]) if every_pixel \
+        else inputs["center_valid"]
+    keep = nbr_valid[:, None, None] & swept[None]
+    size = 2 * radius + 1
+    lmask5 = lmask.reshape(size, size, 1, *lmask.shape[1:])
     offs = torch.arange(-radius, radius + 1, device=coords.device,
                         dtype=coords.dtype)[:, None, None, None]
-    taps = units = 0
+    t_in = t_bd = u_in = u_bd = 0
     for xy in coords:                                   # per label
         x2, y2 = xy[:, 0], xy[:, 1]
         base = (x2 > -1e6) & keep
+        ixf = torch.floor(x2.clamp(-1e6, 1e6))
+        iyf = torch.floor(y2.clamp(-1e6, 1e6))
+        inner = ((ixf - radius >= 0) & (ixf + radius <= ws - 1)
+                 & (x2 - radius > -1) & (x2 + radius < ws)
+                 & (iyf - radius >= 0) & (iyf + radius <= hs - 1)
+                 & (y2 - radius > -1) & (y2 + radius < hs))
         row = ((y2[None] + offs) > -1) & ((y2[None] + offs) < hs)
         col = ((x2[None] + offs) > -1) & ((x2[None] + offs) < ws)
-        ok = row[:, None] & col[None, :] & lmask & base
-        taps += int(ok.sum())
-        units += int(base.sum())
-    return taps, units
+        taps = (row[:, None] & col[None, :] & lmask5 & base).sum(dim=(0, 1))
+        t_in += int(taps[inner].sum())
+        t_bd += int(taps[~inner].sum())
+        u_in += int((base & inner).sum())
+        u_bd += int((base & ~inner).sum())
+    return (t_in, t_bd, u_in, u_bd, int(swept.sum()),
+            int((lmask & swept[None]).sum()))
+
+
+def sweep_ops(counts):
+    """float32 operations of the sweep in the kernel's form: a valid tap of
+    an interior window 6 (the weighted right value, its square and cross
+    product, three adds), of a border window 11 (also the four left-hand
+    sums and the count); a unit ~19 for the NCC from interior sums (right
+    mean, the cross and right variance terms, product, sqrt, divide, the
+    peak test and the max) and ~27 from border sums (also the left mean and
+    variance); a swept pixel 25 products for its left values and 4 a
+    left-mask tap for its label-independent sums."""
+    t_in, t_bd, u_in, u_bd, pixels, lmask_taps = counts
+    return (6 * t_in + 11 * t_bd + 19 * u_in + 27 * u_bd + 25 * pixels
+            + 4 * lmask_taps)
 
 
 # --------------------------------------------------------------------------
 # Phases
 # --------------------------------------------------------------------------
 
+def weights_stress_inputs(device, seed=3):
+    """A ragged 61 x 83 RGB image (the kernel's tiles end ragged) with a
+    validity plane full of holes: scattered pixels and a block."""
+    rng = np.random.default_rng(seed)
+    rgb = rng.uniform(0.0, 255.0, (61, 83, 3))
+    valid = rng.uniform(size=(61, 83)) > 0.15
+    valid[20:31, 40:47] = False
+    return (torch.as_tensor(rgb, dtype=torch.float32, device=device),
+            torch.as_tensor(valid, device=device))
+
+
 def check_weights(device, rgb, paths_by_radius, reps):
     """Kernel 1 against its plain version at each radius of the main paths
-    ({radius: the paths that run it}); returns one table row a radius,
-    {radius: row}."""
+    ({radius: the paths that run it}), on the main path's image and on the
+    stress input; returns one table row a radius, {radius: row}."""
     from stereoreconstruction_tpu_torch.ops.cuda_weights import (
         cuda_geodesic_weights)
     from stereoreconstruction_tpu_torch.ops.weights import geodesic_weights
 
     h, w = rgb.shape[:2]
+    s_rgb, s_valid = weights_stress_inputs(device)
     rows = {}
     for radius, paths in paths_by_radius.items():
         got = cuda_geodesic_weights(rgb, radius)
         want = geodesic_weights(rgb, radius, exact=False)
         err = float((got - want).abs().max())
-        print(f"weights r={radius} {h}x{w}: max |kernel - plain| = {err:.3e}")
-        if not err <= 2e-5:
+        s_err = float((cuda_geodesic_weights(s_rgb, radius, valid=s_valid)
+                       - geodesic_weights(s_rgb, radius, exact=False,
+                                          pixel_valid=s_valid)).abs().max())
+        print(f"weights r={radius} {h}x{w}: max |kernel - plain| = {err:.3e};"
+              f" stress 61x83 with holes: {s_err:.3e}")
+        if not (err <= 2e-5 and s_err <= 2e-5):
             raise AssertionError(f"geodesic weights r={radius} disagree: "
-                                 f"{err}")
+                                 f"{err}, stress {s_err}")
         size = 2 * radius + 1
         ms, call_ms = kernel_ms(lambda: cuda_geodesic_weights(rgb, radius),
                                 reps, device,
@@ -320,8 +370,8 @@ def check_weights(device, rgb, paths_by_radius, reps):
             route="cuda",
             source="stereoreconstruction_tpu_torch/csrc/geodesic_weights.cu",
             replaces="stereoreconstruction_tpu/ops/pallas_weights.py:166",
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=by, library_ms=None, paths=paths)
+            max_abs_err=max(err, s_err), ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=by, library_ms=None, paths=paths)
     return rows
 
 
@@ -344,9 +394,68 @@ def sweep_inputs(device, rig):
     return inputs, torch.as_tensor(nbr_valid[0], device=device)
 
 
+def sweep_stress_inputs(device, radius, seed=5):
+    """Sweep-kernel inputs that reach every branch: a ragged 61 x 83
+    reference (the kernel's tiles end ragged) against 100 x 120 neighbour
+    images, 12 labels, 3 neighbours of which the last is padded.  The
+    coordinates straddle every image border (a quarter of them on whole or
+    half pixels, where the range tests flip), some are the -3e6 sentinel,
+    and some left taps are invalid or weigh <= 1e-10.  Returns (inputs, the
+    neighbours' validity, the peak threshold); the threshold is low, so
+    that most labels peak and every list fills."""
+    rng = np.random.default_rng(seed)
+    size, h, w, hs, ws, n_lab, n_nbr = 2 * radius + 1, 61, 83, 100, 120, 12, 3
+    x2 = rng.uniform(-4.0, ws + 4.0, (n_lab, n_nbr, h, w))
+    y2 = rng.uniform(-4.0, hs + 4.0, (n_lab, n_nbr, h, w))
+    snap = rng.uniform(size=x2.shape) < 0.25
+    x2[snap] = np.round(2.0 * x2[snap]) / 2.0
+    y2[snap] = np.round(2.0 * y2[snap]) / 2.0
+    sentinel = rng.uniform(size=x2.shape) < 0.05
+    x2[sentinel] = y2[sentinel] = -3e6
+    coords = np.stack([x2, y2], axis=2)
+    lv = rng.uniform(size=(size * size, h, w)) > 0.03
+    lv[:, 10:18, 30:45] = False
+    weights = rng.uniform(size=(size * size, h, w))
+    weights[rng.uniform(size=weights.shape) < 0.03] = 1e-11
+    weights[:, 40:45, 60:70] = 0.0
+    center = rng.uniform(size=(h, w)) > 0.1
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    inputs = dict(depths=t(np.linspace(40.0, 90.0, n_lab + 2)),
+                  coords=t(coords), gray_nbr=t(rng.uniform(0, 255,
+                                                           (n_nbr, hs, ws))),
+                  gl=t(rng.uniform(0, 255, (size * size, h, w))),
+                  lv=t(lv, torch.bool), weights=t(weights),
+                  center_valid=t(center, torch.bool), label0=2)
+    return inputs, t([True, True, False], torch.bool), 0.2
+
+
+def check_sweep_stress(device, cfg, title, kernel, plain, **kw):
+    """One sweep mode's kernel against its plain version on the stress
+    input: fail unless bit-equal with oob_frac 0.  ``kw``: the mode's
+    arguments beyond the inputs (top_k, for the top-K mode, which takes no
+    centre mask)."""
+    s_in, s_nv, s_thr = sweep_stress_inputs(device, cfg.window_radius)
+    if "top_k" in kw:
+        del s_in["center_valid"]
+    kw.update(nbr_valid=s_nv, radius=cfg.window_radius, thr=s_thr)
+    n_k, d_k, oob = kernel(**kw, **s_in)
+    n_p, d_p = plain(**kw, **s_in)
+    exact = bool(torch.equal(n_k, n_p) and torch.equal(d_k, d_p))
+    print(f"{title} stress {tuple(d_k.shape)} from "
+          f"{tuple(s_in['gray_nbr'].shape)}: bit-equal {exact} "
+          f"({int(torch.isfinite(n_k).sum())} finite entries), oob_frac "
+          f"{float(oob)}")
+    if not (exact and float(oob) == 0.0):
+        raise AssertionError(f"{title} kernel disagrees with its plain "
+                             "version on the stress input")
+
+
 def check_sweep(device, cfg, inputs, nv, reps, plain_reps):
-    """Kernel 2's WTA mode (K = 1) against its plain version on view 0;
-    returns its row."""
+    """Kernel 2's WTA mode (K = 1) against its plain version on view 0 and
+    on the stress input; returns its row."""
     from stereoreconstruction_tpu_torch.ops.cuda_mvs import (
         cuda_mvs_wta, mvs_wta_plain)
 
@@ -358,28 +467,33 @@ def check_sweep(device, cfg, inputs, nv, reps, plain_reps):
     both = torch.isfinite(n_k) & torch.isfinite(n_p)
     err = float((n_k - n_p)[both].abs().max()) if bool(both.any()) else 0.0
     same_fin = bool((torch.isfinite(n_k) == torch.isfinite(n_p)).all())
+    exact = bool(torch.equal(n_k, n_p) and torch.equal(d_k, d_p))
     print(f"sweep view 0 {tuple(d_k.shape)} D={inputs['coords'].shape[0]} "
           f"N={nv.numel()}: best_depth agrees on {agree:.6f}, max |ncc "
           f"diff| = {err:.3e}, peaks {int(both.sum())}, oob_frac "
-          f"{float(oob)}")
+          f"{float(oob)}, bit-equal {exact}")
     if not (agree >= 0.999 and err <= 1e-5 and same_fin
             and float(oob) == 0.0):
         raise AssertionError("MVS sweep kernel disagrees with its plain "
                              "version")
+    check_sweep_stress(device, cfg, "sweep", cuda_mvs_wta, mvs_wta_plain)
 
     ms, call_ms = kernel_ms(
         lambda: cuda_mvs_wta(nbr_valid=nv, **kw, **inputs), reps, device,
         "mvs_sweep_kernel<2, 1>")
     plain_ms = cuda_ms(lambda: mvs_wta_plain(nbr_valid=nv, **kw, **inputs),
                        plain_reps, device)
-    taps, units = sweep_counts(inputs, nv, cfg.window_radius)
+    counts = sweep_counts(inputs, nv, cfg.window_radius)
     n_bytes = sum(t.numel() * t.element_size() for t in inputs.values()) \
         + nv.numel() + 2 * d_k.numel() * 4
-    bound_ms, by = bound(n_bytes, 11 * taps + 27 * units)
+    n_ops = sweep_ops(counts)
+    bound_ms, by = bound(n_bytes, n_ops)
     print(f"sweep: kernel {ms:.4f} ms (call {call_ms:.4f} ms), plain "
-          f"{plain_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({by}; {n_bytes / 1e6:.1f} MB, {taps} valid "
-          f"taps, {units} units)")
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}; "
+          f"{n_bytes / 1e6:.1f} MB; {n_ops:.4g} operations, "
+          f"{n_ops / PEAK_F32_S * 1e3:.4f} ms; valid taps {counts[0]} "
+          f"interior, {counts[1]} border; units {counts[2]} interior, "
+          f"{counts[3]} border)")
     return dict(name="mvs_sweep", counter="mvs_sweep", route="cuda",
                 source="stereoreconstruction_tpu_torch/csrc/mvs_sweep.cu",
                 replaces="stereoreconstruction_tpu/ops/pallas_mvs.py:306",
@@ -390,7 +504,7 @@ def check_sweep(device, cfg, inputs, nv, reps, plain_reps):
 
 def check_topk(device, cfg, inputs, nv, reps, plain_reps):
     """Kernel 2's top-K mode (K = cfg.top_k) against its plain version on
-    view 0; returns its row."""
+    view 0 and on the stress input; returns its row."""
     from stereoreconstruction_tpu_torch.ops.cuda_mvs import (
         cuda_mvs_topk, cuda_mvs_wta, mvs_topk_plain)
     from stereoreconstruction_tpu_torch.stereo.multiview import (
@@ -410,6 +524,7 @@ def check_topk(device, cfg, inputs, nv, reps, plain_reps):
     matched = (dk == dp) & (dk > 0)
     err = float((nk - np_)[matched].abs().max()) if bool(matched.any()) \
         else 0.0
+    exact = bool(torch.equal(n_k, n_p) and torch.equal(d_k, d_p))
     # the last (largest) entry finalises to the WTA kernel's map
     b_n, b_d, _ = cuda_mvs_wta(nbr_valid=nv, radius=kw["radius"],
                                thr=kw["thr"], **inputs)
@@ -420,28 +535,32 @@ def check_topk(device, cfg, inputs, nv, reps, plain_reps):
     print(f"top-K view 0 K={cfg.top_k} {tuple(d_k.shape)}: depth sets agree "
           f"on {agree:.6f} of pixels, max |ncc diff| {err:.3e} on "
           f"{int(matched.sum())} matched peaks, last entry = WTA map "
-          f"{same_wta}, oob_frac {float(oob)}")
+          f"{same_wta}, oob_frac {float(oob)}, bit-equal {exact}")
     if not (agree >= 0.999 and err <= 1e-5 and same_wta
             and float(oob) == 0.0):
         raise AssertionError("top-K sweep kernel disagrees with its plain "
                              "version")
+    check_sweep_stress(device, cfg, "top-K", cuda_mvs_topk, mvs_topk_plain,
+                       top_k=cfg.top_k)
 
     ms, call_ms = kernel_ms(
         lambda: cuda_mvs_topk(nbr_valid=nv, **kw, **args), reps, device,
         f"mvs_sweep_kernel<2, {cfg.top_k}>")
     plain_ms = cuda_ms(lambda: mvs_topk_plain(nbr_valid=nv, **kw, **args),
                        plain_reps, device)
-    taps, units = sweep_counts(inputs, nv, cfg.window_radius,
-                               every_pixel=True)
+    counts = sweep_counts(inputs, nv, cfg.window_radius, every_pixel=True)
     n_bytes = sum(t.numel() * t.element_size() for t in args.values()) \
         + nv.numel() + 2 * d_k.numel() * 4
     # the insertion: ~5 operations (compare, two selects, a store of two
     # values) a list entry a (pixel, label)
     inserts = 5 * cfg.top_k * d_k[0].numel() * inputs["coords"].shape[0]
-    bound_ms, by = bound(n_bytes, 11 * taps + 27 * units + inserts)
+    n_ops = sweep_ops(counts) + inserts
+    bound_ms, by = bound(n_bytes, n_ops)
     print(f"top-K: kernel {ms:.4f} ms (call {call_ms:.4f} ms), plain "
-          f"{plain_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({by}; {taps} valid taps, {units} units)")
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}; {n_ops:.4g} "
+          f"operations, {n_ops / PEAK_F32_S * 1e3:.4f} ms; valid taps "
+          f"{counts[0]} interior, {counts[1]} border; units {counts[2]} "
+          f"interior, {counts[3]} border)")
     return dict(name="mvs_sweep_topk", counter="mvs_sweep_topk",
                 route="cuda",
                 source="stereoreconstruction_tpu_torch/csrc/mvs_sweep.cu",
@@ -1114,6 +1233,50 @@ def profile_mrf(device, rig):
     print(f"profile:   TRW-S iterations a view {iters} (sum {sum(iters)})")
 
 
+def kernel_name(mangled):
+    """The innermost name of a mangled nested kernel name, with its integer
+    template arguments: '_ZN12_GLOBAL__N_116mvs_sweep_kernelILi2ELi9EEEv...'
+    -> 'mvs_sweep_kernel<2, 9>'."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    i, name = 3, mangled
+    while (m := re.match(r"\d+", mangled[i:])):
+        i += len(m[0])
+        name = mangled[i:i + int(m[0])]
+        i += int(m[0])
+    args = re.match(r"I((?:L[ib]-?\d+E)+)E", mangled[i:])
+    if args:
+        name += f"<{', '.join(re.findall(r'L[ib](-?\d+)E', args[1]))}>"
+    return name
+
+
+def ptxas_summary(log):
+    """Each kernel's resources from an ``nvcc -Xptxas -v`` log: a dict of
+    its name, registers, spill store and load bytes and static shared
+    memory bytes."""
+    rows = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            rows.append(dict(kernel=kernel_name(m[1]), registers=None,
+                             spill_stores=0, spill_loads=0, smem=0))
+            continue
+        if not rows:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rows[-1]["spill_stores"] = int(m[1])
+            rows[-1]["spill_loads"] = int(m[2])
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows[-1]["registers"] = int(m[1])
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            rows[-1]["smem"] = int(m[1])
+    return rows
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1140,9 +1303,14 @@ def main():
     cuda_build.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
     for src, log in cuda_build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  {src}: {line.strip()}")
+        for k in ptxas_summary(log):
+            print(f"  ptxas {src}: {k['kernel']}: {k['registers']} "
+                  f"registers, {k['spill_stores']} B spill stores, "
+                  f"{k['spill_loads']} B spill loads, {k['smem']} B static "
+                  f"smem")
+    smem = cuda_build.library("geodesic_weights").geodesic_weights_smem_bytes
+    print("  geodesic_weights dynamic smem a block: "
+          + ", ".join(f"r={r} {smem(r)} B" for r in (2, 5)))
 
     t0 = time.perf_counter()
     cams_np = converging_rig(N_VIEWS, focal=FOCAL, h=FULL_H, w=FULL_W,

@@ -31,6 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xcompiler", "-fPIC")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# nvcc's output (with ptxas's resource report) of each loaded library, kept
+# beside it so that a library built by an earlier run still reports
 build_logs: Dict[str, str] = {}
 
 
@@ -72,16 +74,19 @@ def build_all() -> Dict[str, ctypes.CDLL]:
     failed = []
     for name, tmp, out, proc in procs:
         log = proc.communicate()[0]
-        build_logs[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}.cu:\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     for name in todo:
-        _libs[name] = ctypes.CDLL(str(_target(name)))
+        lib = _target(name)
+        log = lib.with_suffix(".log")
+        build_logs[name] = log.read_text() if log.exists() else ""
+        _libs[name] = ctypes.CDLL(str(lib))
     return _libs
 
 

@@ -1,4 +1,5 @@
-"""The port and chip_smoke.py stay free of JAX and of the JAX package.
+"""The port, chip_smoke.py and kernel_variants.py stay free of JAX and of
+the JAX package.
 
 Importing anything under ``stereoreconstruction_tpu`` imports JAX and turns
 on x64 (its ``__init__``), and the machine with the GPU has no JAX; so the
@@ -44,7 +45,8 @@ def test_sources_do_not_name_jax_or_the_jax_package():
     pattern = re.compile(r"^\s*(import|from)\s+jax\b|"
                          r"stereoreconstruction_tpu\.",
                          re.MULTILINE)
-    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                       ROOT / "kernel_variants.py"]
     hits = [f"{f.relative_to(ROOT)}: {m.group(0)!r}" for f in files
             for m in pattern.finditer(f.read_text())]
     assert not hits, hits

@@ -301,3 +301,116 @@ def test_topk_wrapper_runs_plain_version_on_cpu(rng):
     np.testing.assert_array_equal(
         tmv.mvs_finalize_wta(n1[0], d1[0], torch.ones(h, w, dtype=bool)),
         tmv.mvs_finalize_wta(wn, wd, torch.ones(h, w, dtype=bool)))
+
+
+# --------------------------------------------------------------------------
+# The sweep's plain versions at the edges (the reference the CUDA kernel is
+# held to on the card), against JAX twoview_cost_plane(mvs_mode=True,
+# use_masks=False) under mvs_wta_slab / mvs_topk_slab
+# --------------------------------------------------------------------------
+
+def _edge_sweep_inputs(ndt, seed=12):
+    """A ragged 13x17 reference against 16x21 neighbour images, 12 labels
+    from label0 = 1, three neighbours of which the last is padded.  The
+    coordinates straddle every image border (a quarter on whole or half
+    pixels, where the tap range tests flip), 5% are the -3e6 sentinel, and
+    some left taps are invalid or weigh <= 1e-10."""
+    rng = np.random.default_rng(seed)
+    size, h, w, hs, ws, n_lab, n_nbr = 5, 13, 17, 16, 21, 12, 3
+    x2 = rng.uniform(-4.0, ws + 4.0, (n_lab, n_nbr, h, w))
+    y2 = rng.uniform(-4.0, hs + 4.0, (n_lab, n_nbr, h, w))
+    snap = rng.uniform(size=x2.shape) < 0.25
+    x2[snap] = np.round(2.0 * x2[snap]) / 2.0
+    y2[snap] = np.round(2.0 * y2[snap]) / 2.0
+    sentinel = rng.uniform(size=x2.shape) < 0.05
+    x2[sentinel] = y2[sentinel] = -3e6
+    weights = rng.uniform(size=(size, size, h, w))
+    weights[rng.uniform(size=weights.shape) < 0.05] = 1e-11
+    return dict(
+        depths=np.linspace(40.0, 90.0, n_lab + 1).astype(ndt),
+        coords=np.stack([x2, y2], axis=2).astype(ndt),
+        gray_nbr=rng.uniform(0, 255, (n_nbr, hs, ws)).astype(ndt),
+        gl=rng.uniform(0, 255, (size, size, h, w)).astype(ndt),
+        lv=rng.uniform(size=(size, size, h, w)) > 0.05,
+        weights=weights.astype(ndt),
+        nbr_valid=np.array([True, True, False]))
+
+
+def _jax_sweep(a, mode, thr, label0=1):
+    """JAX's slab over a's coordinate volume, each neighbour's plane from
+    ``twoview_cost_plane`` as the JAX exact method calls it."""
+    from stereoreconstruction_tpu.ops.ncc import twoview_cost_plane
+
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    n_lab, n_nbr, _, h, w = a["coords"].shape
+    dt = j["depths"].dtype
+    gray_ref = jnp.zeros((h, w), dt)
+
+    def plane_cost(d_idx):
+        xy = j["coords"][d_idx - label0]
+        ncc = jnp.stack([twoview_cost_plane(
+            gray_ref, j["gl"], j["lv"], j["lv"], j["gray_nbr"][n],
+            jnp.ones_like(j["gray_nbr"][n], bool), j["weights"],
+            jnp.moveaxis(xy[n], 0, -1), xy[n, 0] > -1e6, radius=2,
+            mvs_mode=True, use_masks=False) for n in range(n_nbr)])
+        return jnp.where(j["nbr_valid"][:, None, None], ncc, -jnp.inf)
+
+    cfg = dataclasses.replace(CFG, ncc_threshold=thr)
+    slab = jmv.mvs_wta_slab if mode == "wta" else jmv.mvs_topk_slab
+    out = slab(plane_cost, j["depths"], cfg, (h, w), dt, label0=label0,
+               n_labels=n_lab)
+    return tuple(np.asarray(x) for x in out)
+
+
+def _port_sweep(a, mode, thr, label0=1):
+    t = {k: torch.as_tensor(v) for k, v in a.items()}
+    h, w = a["gl"].shape[-2:]
+    for k in ("gl", "lv", "weights"):
+        t[k] = t[k].reshape(25, h, w)
+    kw = dict(radius=2, thr=thr, label0=label0)
+    if mode == "wta":
+        out = mvs_wta_plain(**t, **kw)
+    else:
+        out = mvs_topk_plain(**t, top_k=TCFG.top_k, **kw)
+    return tuple(x.numpy() for x in out)
+
+
+@pytest.mark.parametrize("mode", ["wta", "topk"])
+@pytest.mark.parametrize("ndt", [np.float64, np.float32])
+def test_sweep_plain_matches_jax_at_the_edges(mode, ndt):
+    """``mvs_wta_plain`` / ``mvs_topk_plain`` (the CUDA sweep kernel's
+    reference) against JAX on coordinates that straddle every border of
+    the neighbour images, with sentinels, invalid and weightless left taps
+    and a padded neighbour.  The WTA pick between labels whose windows
+    keep two valid taps is left out: their NCC is +-1 up to rounding, so
+    the tie goes either way.  float64: the same depth at every other pixel
+    and list entry, NCCs within 1e-12 (XLA's FMA contraction).  float32:
+    the contraction moves NCCs by up to ~1e-6 (the centred sums cancel),
+    which can swap two near-equal peaks or flip one at the threshold:
+    depths (and top-K depth sets) equal on >= 99% of the other pixels,
+    NCCs of equal entries within 1e-4."""
+    a = _edge_sweep_inputs(ndt)
+    thr = 0.2              # low, so that most labels peak and lists fill
+    jn, jd = _jax_sweep(a, mode, thr)
+    tn, td = _port_sweep(a, mode, thr)
+    assert tn.dtype == ndt and td.shape == jd.shape
+    if mode == "wta":
+        tie = np.abs(jn) > 1.0 - (1e-9 if ndt == np.float64 else 1e-5)
+        jn, jd, tn, td = jn[None], jd[None], tn[None], td[None]
+    else:
+        tie = np.zeros(jd.shape[1:], bool)
+        jn, jd = _sets_by_depth(jn, jd)
+        tn, td = _sets_by_depth(tn, td)
+    peaks = np.isfinite(jn)
+    assert peaks.mean() > 0.5
+    same = (td == jd).all(axis=0) | tie
+    print(f"{mode} {np.dtype(ndt)}: {(~same).sum()} of {same.size} pixels "
+          f"differ, {tie.sum()} two-tap ties")
+    both = (td == jd) & np.isfinite(tn) & np.isfinite(jn)
+    if ndt == np.float64:
+        assert same.all()
+        np.testing.assert_array_equal(np.isfinite(tn), peaks)
+        np.testing.assert_allclose(tn[both], jn[both], rtol=0, atol=1e-12)
+        return
+    assert same.mean() >= 0.99
+    np.testing.assert_allclose(tn[both], jn[both], rtol=0, atol=1e-4)

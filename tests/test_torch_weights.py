@@ -69,3 +69,24 @@ def test_valid_plane_matches_jax(rng):
     np.testing.assert_allclose(got, want, atol=2e-5)
     np.testing.assert_allclose(got[:, :, halo + 2:halo + 16],
                                full[:, :, row0 + 2:row0 + 16], atol=2e-5)
+
+
+@pytest.mark.parametrize("radius", [2, 5])
+def test_fast_weights_with_holes_match_jax(rng, radius):
+    """The CUDA kernel's reference at its edges: a ragged image (the
+    kernel's pixel tiles end ragged) whose validity plane is full of holes
+    (scattered pixels and a block), which break the min-plus chains inside
+    the windows; against JAX ``geodesic_weights(exact=False,
+    pixel_valid=...)``, atol 2e-5 as above."""
+    rgb = rng.uniform(0, 255, (19, 37, 3)).astype(np.float32)
+    valid = rng.uniform(size=(19, 37)) > 0.15
+    valid[6:10, 20:25] = False
+    want = np.asarray(jgw(jnp.asarray(rgb), radius, exact=False,
+                          pixel_valid=jnp.asarray(valid)))
+    got = cuda_geodesic_weights(torch.as_tensor(rgb), radius,
+                                valid=torch.as_tensor(valid)).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5)
+    # the holes reach the windows: a window pixel behind a hole is farther
+    # than in the same image without them
+    free = cuda_geodesic_weights(torch.as_tensor(rgb), radius).numpy()
+    assert (got < free - 1e-3).any()
