@@ -10,7 +10,8 @@ Phases; any failure raises, and the script exits non-zero:
 1. require CUDA; print the device and nvidia-smi's name and power limit;
 2. build the five CUDA kernels from csrc/ (one nvcc per source, in
    parallel); print each kernel's registers, spills and static shared
-   memory from ptxas, and kernel 1's dynamic shared memory;
+   memory from ptxas, kernel 1's dynamic shared memory and kernel 4's
+   resident blocks an SM;
 3. kernel 1 (geodesic weights) against its plain PyTorch version at
    384x512, radius 2 (the MVS paths) and radius 5 (the two-view paths),
    and on a ragged 61x83 stress image with a holed validity plane, max
@@ -43,11 +44,13 @@ Phases; any failure raises, and the script exits non-zero:
 9. kernel 3 (bilinear warp) against its plain version on view 0's two-view
    coordinate volume (384x512, 100 labels): warped values bit-equal, the
    same validity, oob_frac == 0; times;
-10. kernel 4 (two-view cost) against its plain versions on kernel 3's warp
-    volume, radius 5, 100 labels.  WTA mode: best depth equal on >= 99.9%
-    of pixels, |min-cost diff| <= 1e-4, the same +inf pixels.  Volume
-    mode: bit-equal to fast_cost_plane stacked over the labels, the same
-    +inf entries.  Both also on random 61x83 inputs (ragged tiles); times;
+10. kernel 4 (two-view cost) against its plain versions, radius 5: on
+    kernel 3's warp volume of view 0 (100 labels), on random 61x83 inputs
+    (ragged tiles) and on a structured 61x83, 13-label stress input (each
+    of the kernel's paths and cost classes).  Both modes (WTA: min cost,
+    second and best depth; volume: fast_cost_plane stacked over the
+    labels) bit-equal on all three, NaN equal to NaN; times, and the bound
+    counted in the kernel's form;
 11. the two-view main path (the ``cli stereo --two-view`` library call):
     compute_depth_maps(method="kernel") with the cross-check on views 0 and
     1 of the rig, TwoViewConfig defaults (radius 5, 100 labels t/(5-4t)
@@ -218,12 +221,13 @@ def cuda_ms(fn, reps, device):
     return statistics.median(times)
 
 
-def kernel_ms(fn, reps, device, kernel):
+def kernel_ms(fn, reps, device, kernel, strict=False):
     """(device ms, call ms) of one call of ``fn``: the mean device time of
     the CUDA kernel whose name holds ``kernel`` over ``reps`` calls, each
     after an L2 flush, from torch.profiler; and ``cuda_ms``'s event time of
     the whole call, which also counts the host work of the wrapper while
-    the card waits (tens of microseconds)."""
+    the card waits (tens of microseconds).  A name that matches no profiled
+    launch times the whole call, or with ``strict`` fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -242,12 +246,17 @@ def kernel_ms(fn, reps, device, kernel):
         print(f"  timing: profiled {n} launches of {kernel}, not {reps}"
               + ("; its time is the call's" if n == 0 else ""))
     if n == 0:
+        if strict:
+            raise AssertionError(f"no profiled launch of {kernel}")
         return call, call
     return sum(e.self_device_time_total for e in rows) / n / 1e3, call
 
 
 def bound(n_bytes, n_ops):
-    """Least time (ms) for the work on the card, and what bounds it."""
+    """Least time (ms) for the work on the card, and what bounds it.  The
+    operations are counted at PEAK_F32_S, which counts an FMA as two; the
+    kernels are built with --fmad=false, so where every operation is its
+    own instruction the card's rate for them is half that."""
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
     t_ops = n_ops / PEAK_F32_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -902,21 +911,57 @@ def check_warp(device, tv, reps, plain_reps):
 
 
 def cost_counts(left_valid, weights, wvalid, radius):
-    """(evaluated taps, evaluated units) of the cost kernel on these
-    inputs: a unit is a (pixel, label) whose own warp sample is valid; a
-    tap of a unit is evaluated when its left validity, weight > 1e-10 and
-    warp validity hold."""
+    """The cost kernel's work on these inputs, split as the kernel splits
+    it.  A unit is a (pixel, label) whose own warp sample is valid; a
+    pixel's left mask is its taps with left validity and weight > 1e-10.  A
+    unit is hoisted when every left-mask tap has a valid warp sample: it
+    then sums the right-hand terms over the left mask and takes the rest
+    from the pixel's sums.  Otherwise it is a full unit, whose evaluated
+    taps are the left-mask taps with a valid warp sample.  Returns a dict
+    of the counts: hoisted units and their taps, full units and their
+    evaluated taps, and the left-mask taps of all pixels."""
     size = 2 * radius + 1
     n, h, w = wvalid.shape
     pad = (radius,) * 4
     lpad = torch.nn.functional.pad(left_valid[None], pad, value=False)[0]
     vpad = torch.nn.functional.pad(wvalid, pad, value=False)
-    taps = 0
-    for s in range(size):
-        for t in range(size):
-            left = lpad[s:s + h, t:t + w] & (weights[s, t] > 1e-10)
-            taps += int((left & vpad[:, s:s + h, t:t + w] & wvalid).sum())
-    return taps, int(wvalid.sum())
+    left = [lpad[s:s + h, t:t + w] & (weights[s, t] > 1e-10)
+            for s in range(size) for t in range(size)]
+    offs = [(s, t) for s in range(size) for t in range(size)]
+    n_left = sum(m.to(torch.int32) for m in left)
+    broken = torch.zeros_like(wvalid)
+    for m, (s, t) in zip(left, offs):
+        broken |= m & ~vpad[:, s:s + h, t:t + w]
+    hoisted = wvalid & ~broken
+    full = wvalid & broken
+    full_taps = sum(int((m & vpad[:, s:s + h, t:t + w] & full).sum())
+                    for m, (s, t) in zip(left, offs))
+    return dict(hoisted_units=int(hoisted.sum()),
+                hoisted_taps=int((n_left * hoisted).sum()),
+                full_units=int(full.sum()), full_taps=full_taps,
+                left_taps=int(n_left.sum()))
+
+
+def cost_ops(counts, per_unit):
+    """float32 operations of the cost kernel in its form: a pixel's
+    label-independent sums 6 a left-mask tap (weight x gray, its square,
+    four adds); a hoisted unit 6 a left-mask tap (the weighted right value,
+    its square, the cross product, three adds), a full unit 12 an evaluated
+    tap (also the four left-hand sums and the count); ``per_unit`` a unit
+    for the cost (and the WTA update)."""
+    return (6 * counts["left_taps"] + 6 * counts["hoisted_taps"]
+            + 12 * counts["full_taps"]
+            + per_unit * (counts["hoisted_units"] + counts["full_units"]))
+
+
+def cost_halo_bytes(shape, radius, n_labels, tile=(32, 4)):
+    """Bytes the cost kernel reads for its warped halos: each tile (columns,
+    rows) reads, for every label, its halo of the warped plane (4 B a
+    cell) and of its validity (1 B), mostly from L2."""
+    h, w = shape
+    tw, th = tile
+    tiles = -(-w // tw) * -(-h // th)
+    return tiles * n_labels * (th + 2 * radius) * (tw + 2 * radius) * 5
 
 
 def ragged_inputs(device, radius, seed=7):
@@ -935,9 +980,108 @@ def ragged_inputs(device, radius, seed=7):
                                                  0.0, 1.0))
 
 
+def cost_stress_inputs(device, radius, seed=11, dtype=torch.float32):
+    """Structured cost-kernel inputs at 61 x 83 (ragged tiles) with 13
+    labels (not a multiple of the kernel's label chunk) that reach each of
+    its paths: large all-valid regions (hoisted units), scattered and block
+    holes and a half-plane of invalid warp samples inside the left mask
+    (full units), holes that lie only outside every left mask (inside a
+    block of invalid left taps: still hoisted), one fully invalid label
+    plane (+inf), flat windows with unit weights (NaN -> max_color_diff),
+    windows with no left tap (bad_ret: the invalid block's core, and pixels
+    whose weights are all 0), weights at or below 1e-10, and two identical
+    labels (a tie the WTA rule breaks towards the first).  Returns
+    (depths, warped, wvalid, gray_ref, left_valid, weights)."""
+    rng = np.random.default_rng(seed)
+    size, h, w, n = 2 * radius + 1, 61, 83, 13
+    gray = rng.uniform(0.0, 255.0, (h, w))
+    warped = rng.uniform(0.0, 255.0, (n, h, w))
+    weights = rng.uniform(0.0, 1.0, (size, size, h, w))
+    weights[rng.uniform(size=weights.shape) < 0.02] = 1e-11
+    # flat windows: gray, warp and weights constant around rows 10-19,
+    # columns 55-69
+    gray[5:25, 50:75] = 100.0
+    warped[:, 5:25, 50:75] = 60.0
+    weights[:, :, 10:20, 55:70] = 1.0
+    weights[:, :, 50:55, 60:70] = 0.0
+    left = np.ones((h, w), bool)
+    left[-1, :] = left[:, -1] = False        # as sample() validity
+    left[rng.uniform(size=(h, w)) < 0.01] = False
+    left[30:45, 10:30] = False
+    wvalid = np.ones((n, h, w), bool)
+    wvalid[:, 31:44, 11:29] = rng.uniform(size=(n, 13, 18)) > 0.3
+    wvalid[2][rng.uniform(size=(h, w)) < 0.02] = False
+    wvalid[3, 40:, 40:] = False
+    wvalid[6] = False
+    wvalid[9, 10:20, 10:20] = False
+    wvalid[12][rng.uniform(size=(h, w)) < 0.005] = False
+    warped[5], wvalid[5] = warped[4], wvalid[4]
+    depths = np.sort(rng.uniform(40.0, 90.0, n))
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(a, dtype=dt, device=device)
+
+    return (t(depths), t(warped), t(wvalid, torch.bool), t(gray),
+            t(left, torch.bool), t(weights))
+
+
+def same_values(a, b):
+    """Equal values, NaN equal to NaN."""
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def check_cost_inputs(cfg, title, kernel, plain, cases):
+    """One cost-kernel mode against its plain version on each of ``cases``
+    ((name, args) pairs): fail unless every output is bit-equal (NaN equal
+    to NaN).  Prints each case's classes of costs; returns the largest
+    |kernel - plain| over the entries finite in both."""
+    kw = dict(radius=cfg.window_radius, max_color_diff=cfg.max_color_diff,
+              bad_ret=cfg.bad_ret)
+    err = 0.0
+    for name, args in cases:
+        got, want = kernel(*args, **kw), plain(*args, **kw)
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        exact = all(same_values(g, w) for g, w in zip(got, want))
+        for g, w in zip(got, want):
+            fin = torch.isfinite(g) & torch.isfinite(w)
+            if bool(fin.any()):
+                err = max(err, float((g - w)[fin].abs().max()))
+        c = want[0]
+        print(f"{title} {name} {tuple(args[1].shape)}: bit-equal {exact} "
+              f"({int(torch.isinf(c).sum())} +inf, "
+              f"{int((c == cfg.bad_ret).sum())} bad_ret, "
+              f"{int((c == cfg.max_color_diff).sum())} max_color_diff, "
+              f"{int(torch.isfinite(c).sum())} finite)")
+        if not exact:
+            raise AssertionError(f"{title} kernel disagrees with its plain "
+                                 f"version on the {name} input")
+    return err
+
+
+def cost_bound(tv, warped, wvalid, cfg, n_bytes, per_unit):
+    """Kernel 4's bound on the main path's inputs, in the kernel's form:
+    (bound ms, what bounds it, a line that states the counts)."""
+    counts = cost_counts(tv["left_valid"], tv["weights"], wvalid,
+                         cfg.window_radius)
+    ops = cost_ops(counts, per_unit)
+    bound_ms, by = bound(n_bytes, ops)
+    halo = cost_halo_bytes(wvalid.shape[1:], cfg.window_radius,
+                           wvalid.shape[0])
+    note = (f"{n_bytes / 1e6:.1f} MB read once; {ops:.4g} operations: "
+            f"{counts['hoisted_units']} hoisted units ({counts['hoisted_taps']}"
+            f" taps), {counts['full_units']} full units "
+            f"({counts['full_taps']} taps), {counts['left_taps']} left-mask "
+            f"taps; one instruction an operation under --fmad=false: "
+            f"{ops / (PEAK_F32_S / 2) * 1e3:.4f} ms; halo reads "
+            f"{halo / 1e6:.1f} MB")
+    return bound_ms, by, note
+
+
 def check_cost(device, tv, warped, wvalid, cfg, reps, plain_reps):
-    """Kernel 4's WTA mode against its plain version; returns its table
-    row."""
+    """Kernel 4's WTA mode against its plain version, bit-equal on the main
+    path's view 0, the random ragged input and the structured stress
+    input; returns its table row."""
     from stereoreconstruction_tpu_torch.ops.cuda_cost_wta import (
         cost_wta_plain, cuda_cost_wta)
 
@@ -945,42 +1089,21 @@ def check_cost(device, tv, warped, wvalid, cfg, reps, plain_reps):
             tv["weights"])
     kw = dict(radius=cfg.window_radius, max_color_diff=cfg.max_color_diff,
               bad_ret=cfg.bad_ret)
-    mc_k, sec_k, best_k = cuda_cost_wta(*args, **kw)
-    mc_p, sec_p, best_p = cost_wta_plain(*args, **kw)
-    agree = float(((best_k == best_p)
-                   | (torch.isnan(best_k) & torch.isnan(best_p)))
-                  .float().mean())
-    fin = torch.isfinite(mc_p)
-    same_inf = bool(torch.equal(torch.isinf(mc_k), torch.isinf(mc_p))
-                    and torch.equal(torch.isinf(sec_k), torch.isinf(sec_p)))
-    err = float((mc_k - mc_p)[fin].abs().max()) if bool(fin.any()) else 0.0
-    print(f"cost view 0 D={warped.shape[0]} r={cfg.window_radius}: best "
-          f"depth agrees on {agree:.6f}, max |min-cost diff| {err:.3e}, "
-          f"{int(fin.sum())} finite, +inf pixels equal {same_inf}")
-    if not (agree >= 0.999 and err <= 1e-4 and same_inf):
-        raise AssertionError("cost kernel disagrees with its plain version")
-    # the kernel's 32 x 4 pixel tiles end ragged at 61 x 83 (random inputs)
-    ragged = ragged_inputs(device, cfg.window_radius)
-    for got, want in zip(cuda_cost_wta(*ragged, **kw),
-                         cost_wta_plain(*ragged, **kw)):
-        if not torch.equal(got.nan_to_num(), want.nan_to_num()):
-            raise AssertionError("cost kernel disagrees at a ragged edge")
+    err = check_cost_inputs(cfg, "cost", cuda_cost_wta, cost_wta_plain, [
+        ("view 0", args),
+        ("ragged", ragged_inputs(device, cfg.window_radius)),
+        ("stress", cost_stress_inputs(device, cfg.window_radius))])
 
     ms, call_ms = kernel_ms(lambda: cuda_cost_wta(*args, **kw), reps,
-                            device, "cost_wta_kernel<5, false>")
+                            device, "cost_wta_kernel<5, false>", strict=True)
     plain_ms = cuda_ms(lambda: cost_wta_plain(*args, **kw), plain_reps,
                        device)
-    taps, units = cost_counts(tv["left_valid"], tv["weights"], wvalid,
-                              cfg.window_radius)
     n_bytes = (sum(t.numel() * t.element_size() for t in args)
-               + 3 * mc_k.numel() * 4)
-    # 12 float32 operations a tap (2 products, 3 squares / cross products,
-    # 7 adds) and ~30 a unit (means, the three sums, sqrt, the cost, WTA)
-    bound_ms, by = bound(n_bytes, 12 * taps + 30 * units)
+               + 3 * warped[0].numel() * 4)
+    # ~30 operations a unit (means, the three sums, sqrt, the cost, WTA)
+    bound_ms, by, note = cost_bound(tv, warped, wvalid, cfg, n_bytes, 30)
     print(f"cost: kernel {ms:.4f} ms (call {call_ms:.4f} ms), plain "
-          f"{plain_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({by}; {n_bytes / 1e6:.1f} MB, {taps} taps, "
-          f"{units} units)")
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}; {note})")
     return dict(name="cost_wta", counter="cost_wta", route="cuda",
                 source="stereoreconstruction_tpu_torch/csrc/cost_wta.cu",
                 replaces="stereoreconstruction_tpu/ops/pallas_ncc.py:158",
@@ -990,43 +1113,30 @@ def check_cost(device, tv, warped, wvalid, cfg, reps, plain_reps):
 
 def check_cost_volume(device, tv, warped, wvalid, cfg, reps, plain_reps):
     """Kernel 4's volume mode against its plain version (fast_cost_plane
-    stacked over the labels); returns its table row."""
+    stacked over the labels), bit-equal on the same inputs as the WTA
+    mode; returns its table row."""
     from stereoreconstruction_tpu_torch.ops.cuda_cost_wta import (
         cost_volume_plain, cuda_cost_volume)
 
     args = (warped, wvalid, tv["gray_ref"], tv["left_valid"], tv["weights"])
     kw = dict(radius=cfg.window_radius, max_color_diff=cfg.max_color_diff,
               bad_ret=cfg.bad_ret)
-    vol_k = cuda_cost_volume(*args, **kw)
-    vol_p = cost_volume_plain(*args, **kw)
-    same_inf = bool(torch.equal(torch.isinf(vol_k), torch.isinf(vol_p)))
-    fin = torch.isfinite(vol_p)
-    err = float((vol_k - vol_p)[fin].abs().max())
-    print(f"cost volume view 0 {tuple(vol_k.shape)} r={cfg.window_radius}: "
-          f"max |kernel - plain| {err:.3e} over {int(fin.sum())} finite "
-          f"costs, +inf entries equal {same_inf} ({int((~fin).sum())})")
-    ragged = ragged_inputs(device, cfg.window_radius)[1:]
-    ragged_equal = bool(torch.equal(cuda_cost_volume(*ragged, **kw),
-                                    cost_volume_plain(*ragged, **kw)))
-    if not (err == 0.0 and same_inf and ragged_equal
-            and bool(torch.equal(vol_k, vol_p))):
-        raise AssertionError("cost volume kernel disagrees with its plain "
-                             f"version (ragged tiles equal: {ragged_equal})")
+    err = check_cost_inputs(
+        cfg, "cost volume", cuda_cost_volume, cost_volume_plain, [
+            ("view 0", args),
+            ("ragged", ragged_inputs(device, cfg.window_radius)[1:]),
+            ("stress", cost_stress_inputs(device, cfg.window_radius)[1:])])
 
     ms, call_ms = kernel_ms(lambda: cuda_cost_volume(*args, **kw), reps,
-                            device, "cost_wta_kernel<5, true>")
+                            device, "cost_wta_kernel<5, true>", strict=True)
     plain_ms = cuda_ms(lambda: cost_volume_plain(*args, **kw), plain_reps,
                        device)
-    taps, units = cost_counts(tv["left_valid"], tv["weights"], wvalid,
-                              cfg.window_radius)
     n_bytes = (sum(t.numel() * t.element_size() for t in args)
-               + vol_k.numel() * 4)
-    # 12 float32 operations a tap and ~25 a unit (the cost, no WTA)
-    bound_ms, by = bound(n_bytes, 12 * taps + 25 * units)
+               + warped.numel() * 4)
+    # ~25 operations a unit (the cost, no WTA)
+    bound_ms, by, note = cost_bound(tv, warped, wvalid, cfg, n_bytes, 25)
     print(f"cost volume: kernel {ms:.4f} ms (call {call_ms:.4f} ms), plain "
-          f"{plain_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({by}; {n_bytes / 1e6:.1f} MB, {taps} taps, "
-          f"{units} units)")
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}; {note})")
     return dict(name="cost_volume", counter="cost_volume", route="cuda",
                 source="stereoreconstruction_tpu_torch/csrc/cost_wta.cu",
                 replaces="stereoreconstruction_tpu/ops/pallas_ncc.py:158",
@@ -1311,6 +1421,9 @@ def main():
     smem = cuda_build.library("geodesic_weights").geodesic_weights_smem_bytes
     print("  geodesic_weights dynamic smem a block: "
           + ", ".join(f"r={r} {smem(r)} B" for r in (2, 5)))
+    blocks = cuda_build.library("cost_wta").cost_wta_blocks_per_sm
+    print(f"  cost_wta blocks an SM (runtime occupancy): WTA {blocks(0)}, "
+          f"volume {blocks(1)}")
 
     t0 = time.perf_counter()
     cams_np = converging_rig(N_VIEWS, focal=FOCAL, h=FULL_H, w=FULL_W,

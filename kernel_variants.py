@@ -5,16 +5,18 @@ Run from the repository root:
 
     python3 kernel_variants.py [--baseline DIR]
 
-Kernels 1 (``csrc/geodesic_weights.cu``) and 2 (``csrc/mvs_sweep.cu``).
-Each variant is the shipped source with a text substitution that undoes
-one design choice (an ablation), or, with ``--baseline``, the same source
-from another tree's ``csrc`` directory (for example an earlier commit
-unpacked with ``git archive``).  Every variant is built with the port's
-nvcc flags, in parallel, and its registers, spills and shared memory are
-printed from ptxas.  A variant that computes the kernel's function is held
-to the plain version on ``chip_smoke.py``'s inputs (the main path's view 0
-and the stress inputs): bit-equal for the sweep, within 2e-5 for the
-weights; the script exits non-zero if one disagrees.  A timing-only variant
+Kernels 1 (``csrc/geodesic_weights.cu``), 2 (``csrc/mvs_sweep.cu``) and 4
+(``csrc/cost_wta.cu``), or those named with ``--kernels``.  Each variant
+is the shipped source with a text substitution that undoes one design
+choice (an ablation), or, with ``--baseline``, the same source from
+another tree's ``csrc`` directory (for example an earlier commit unpacked
+with ``git archive``).  Every variant is built with the port's nvcc flags,
+in parallel, and its registers, spills and shared memory are printed from
+ptxas.  A variant that computes the kernel's function is held to the plain
+versions on ``chip_smoke.py``'s inputs (the main path's view 0 and the
+stress inputs): bit-equal for the sweep and the cost kernel (both modes of
+each), within 2e-5 for the weights; the script exits non-zero if one
+disagrees.  A timing-only variant
 (``timing_only``) drops work, so its results differ: it is only timed, to
 show what that work costs.  Each variant is timed twice, in the order
 first..last then last..first, by ``chip_smoke.kernel_ms`` (device time, the
@@ -83,6 +85,94 @@ SWEEP_VARIANTS = [
      [("w[k] * __ldg(row + c);", "w[k] * (float)(r * 7 + c);")], True),
 ]
 WEIGHTS_VARIANTS = [("shipped", [], False)]
+COST_LB = "__launch_bounds__(kThreads, 3)"
+COST_L = "constexpr int kL = 4;"
+COST_DB = "constexpr bool kDoubleBuffer = false;"
+# the full pass's inner body, and two other ways to skip a failing tap
+COST_FULL = """\
+              const float wj = b ? wk : 0.f;
+              const float wl = wj * g;
+              const float wr = wj * r[j];
+              sw[j] = sw[j] + wj;
+              sl[j] = sl[j] + wl;
+              sr[j] = sr[j] + wr;
+              sll[j] = sll[j] + wl * wl;
+              srr[j] = srr[j] + wr * wr;
+              slr[j] = slr[j] + wl * wr;
+              sn[j] += b;
+"""
+COST_FULL_BRANCH = """\
+              if (b) {
+                const float wl = wk * g;
+                const float wr = wk * r[j];
+                sw[j] = sw[j] + wk;
+                sl[j] = sl[j] + wl;
+                sr[j] = sr[j] + wr;
+                sll[j] = sll[j] + wl * wl;
+                srr[j] = srr[j] + wr * wr;
+                slr[j] = slr[j] + wl * wr;
+                sn[j] += 1;
+              }
+"""
+COST_FULL_SELECT = """\
+              const float wl = wk * g;
+              const float wr = wk * r[j];
+              sw[j] = sw[j] + (b ? wk : 0.f);
+              sl[j] = sl[j] + (b ? wl : 0.f);
+              sr[j] = sr[j] + (b ? wr : 0.f);
+              sll[j] = sll[j] + (b ? wl * wl : 0.f);
+              srr[j] = srr[j] + (b ? wr * wr : 0.f);
+              slr[j] = slr[j] + (b ? wl * wr : 0.f);
+              sn[j] += b ? 1 : 0;
+"""
+COST_VARIANTS = [
+    ("shipped", [], False),
+    ("a label a pass (L = 1)", [(COST_L, COST_L.replace("4", "1"))], False),
+    ("L = 8 (2 blocks an SM)",
+     [(COST_L, COST_L.replace("4", "8")),
+      (COST_LB, COST_LB.replace("3)", "2)"))], False),
+    ("one warp a block (8 x 4 tile, 7 blocks an SM)",
+     [("constexpr int kTW = 32;", "constexpr int kTW = 8;"),
+      ("constexpr int kHS = 42;", "constexpr int kHS = 24;"),
+      (COST_LB, COST_LB.replace("3)", "7)"))], False),
+    ("double buffering (one barrier a chunk)",
+     [(COST_DB, COST_DB.replace("false", "true"))], False),
+    ("byte validity (a byte a cell and label)",
+     [("constexpr bool kPackedValidity = true;",
+       "constexpr bool kPackedValidity = false;")], False),
+    ("no hoisting (every unit the full way)",
+     [("constexpr bool kHoist = true;", "constexpr bool kHoist = false;")],
+     False),
+    ("the default shared-memory carveout",
+     [("  if (err == cudaSuccess)\n"
+       "    err = cudaFuncSetAttribute(cost_wta_kernel<R, kVolume>,",
+       "  if (false)\n"
+       "    err = cudaFuncSetAttribute(cost_wta_kernel<R, kVolume>,")], False),
+    ("at most 128 registers",
+     [(COST_LB, COST_LB.replace("3)", "4)"))], False),
+    ("full pass: a branch a label", [(COST_FULL, COST_FULL_BRANCH)], False),
+    ("full pass: a select a sum", [(COST_FULL, COST_FULL_SELECT)], False),
+    ("no pre-pass: every warp hoisted (timing only)",
+     [("      broken = centre & ~all_valid;", "      broken = 0u;")], True),
+    ("no full pass (timing only)",
+     [("    } else if (centre) {\n", "    } else if (false) {\n")], True),
+    ("no right-hand sums (timing only)",
+     [("sr[l] = srr[l] = slr[l] = 0.f;\n#pragma unroll 1\n"
+       "        for (int s = 0; s < S; ++s) {",
+       "sr[l] = srr[l] = slr[l] = 0.f;\n#pragma unroll 1\n"
+       "        for (int s = 0; s < 0; ++s) {")], True),
+    ("no epilogue on hoisted units (timing only)",
+     [("cost[l] = ncc_cost(h_w, h_l, sr[l], h_ll, srr[l], slr[l], h_n,\n"
+       "                               max_color_diff, bad_ret);",
+       "cost[l] = h_w + sr[l] + srr[l] + slr[l];")], True),
+    ("no tap loads (timing only)",
+     [("const float4 q =\n"
+       "          reinterpret_cast<const float4*>(rb + (l0 / 4 + p) * NH * 4)[h];",
+       "const float4 q = make_float4(h, h + 1, h + 2, h + 3);")], True),
+]
+VARIANTS = {"mvs_sweep": SWEEP_VARIANTS,
+            "geodesic_weights": WEIGHTS_VARIANTS,
+            "cost_wta": COST_VARIANTS}
 
 
 def variant_sources(kernel, variants, baseline, tmp):
@@ -124,20 +214,131 @@ def build(sources, tmp):
     return libs
 
 
+def sweep_cases(dev, rig, cfg):
+    """(check, times) of the sweep: ``check()`` -> bit-equal on view 0 and
+    the stress input in both modes; ``times()`` -> device ms a mode."""
+    from stereoreconstruction_tpu_torch.ops.cuda_mvs import (
+        cuda_mvs_topk, cuda_mvs_wta, mvs_topk_plain, mvs_wta_plain)
+
+    inputs, nv = cs.sweep_inputs(dev, rig)
+    s_in, s_nv, s_thr = cs.sweep_stress_inputs(dev, cfg.window_radius)
+    kw = dict(radius=cfg.window_radius, thr=float(cfg.ncc_threshold))
+    s_kw = dict(radius=cfg.window_radius, thr=s_thr)
+
+    def no_center(d):
+        return {k: v for k, v in d.items() if k != "center_valid"}
+
+    # (call, plain result) of each sweep mode and input
+    cases = [
+        (lambda: cuda_mvs_wta(nbr_valid=nv, **kw, **inputs)[:2],
+         mvs_wta_plain(nbr_valid=nv, **kw, **inputs)),
+        (lambda: cuda_mvs_topk(nbr_valid=nv, top_k=cfg.top_k, **kw,
+                               **no_center(inputs))[:2],
+         mvs_topk_plain(nbr_valid=nv, top_k=cfg.top_k, **kw,
+                        **no_center(inputs))),
+        (lambda: cuda_mvs_wta(nbr_valid=s_nv, **s_kw, **s_in)[:2],
+         mvs_wta_plain(nbr_valid=s_nv, **s_kw, **s_in)),
+        (lambda: cuda_mvs_topk(nbr_valid=s_nv, top_k=cfg.top_k, **s_kw,
+                               **no_center(s_in))[:2],
+         mvs_topk_plain(nbr_valid=s_nv, top_k=cfg.top_k, **s_kw,
+                        **no_center(s_in)))]
+
+    def check():
+        return all(torch.equal(got, want) for call, plain in cases
+                   for got, want in zip(call(), plain)), {}
+
+    def times():
+        return {"WTA": cs.kernel_ms(cases[0][0], 10, dev,
+                                    "mvs_sweep_kernel<2, 1>")[0],
+                "top-K": cs.kernel_ms(cases[1][0], 10, dev,
+                                      "mvs_sweep_kernel<2, 9>")[0]}
+
+    return check, times
+
+
+def weights_cases(dev, rig):
+    """(check, times) of the geodesic weights at r = 2 and 5: within 2e-5
+    on view 0 and the stress image."""
+    from stereoreconstruction_tpu_torch.ops.cuda_weights import (
+        cuda_geodesic_weights)
+    from stereoreconstruction_tpu_torch.ops.weights import geodesic_weights
+
+    rgb = torch.as_tensor(rig[2][0], device=dev)
+    w_rgb, w_valid = cs.weights_stress_inputs(dev)
+    cases = [(r, geodesic_weights(rgb, r, exact=False),
+              geodesic_weights(w_rgb, r, exact=False, pixel_valid=w_valid))
+             for r in (2, 5)]
+
+    def check():
+        err = max(max(
+            float((cuda_geodesic_weights(rgb, r) - want).abs().max()),
+            float((cuda_geodesic_weights(w_rgb, r, valid=w_valid)
+                   - s_want).abs().max()))
+            for r, want, s_want in cases)
+        return err <= 2e-5, {"max_abs_err": err}
+
+    def times():
+        return {f"r={r}": cs.kernel_ms(
+            lambda: cuda_geodesic_weights(rgb, r), 10, dev,
+            f"geodesic_weights_kernel<{r}>")[0] for r, _, _ in cases}
+
+    return check, times
+
+
+def cost_cases(dev, rig):
+    """(check, times) of the two-view cost kernel on the two-view main
+    path's view 0 (views 0 and 1 of the rig, TwoViewConfig defaults), the
+    random ragged input and the structured stress input: bit-equal in both
+    modes (NaN equal to NaN)."""
+    from stereoreconstruction_tpu_torch.config import TwoViewConfig
+    from stereoreconstruction_tpu_torch.ops.cuda_cost_wta import (
+        cost_volume_plain, cost_wta_plain, cuda_cost_volume, cuda_cost_wta)
+    from stereoreconstruction_tpu_torch.ops.warp import warp_bilinear
+
+    cfg = TwoViewConfig(min_depth=cs.MIN_DEPTH, max_depth=cs.MAX_DEPTH,
+                        num_depth_levels=cs.N_LABELS, image_scale=cs.SCALE)
+    tv = cs.twoview_inputs(dev, (rig[0][:2], cfg, rig[2][:2], rig[3][:2]))
+    warped, wvalid = warp_bilinear(tv["coords"], tv["gray_oth"],
+                                   tv["mask_oth"])
+    view0 = (tv["depths"], warped, wvalid, tv["gray_ref"], tv["left_valid"],
+             tv["weights"])
+    kw = dict(radius=cfg.window_radius, max_color_diff=cfg.max_color_diff,
+              bad_ret=cfg.bad_ret)
+    inputs = [view0, cs.ragged_inputs(dev, cfg.window_radius),
+              cs.cost_stress_inputs(dev, cfg.window_radius)]
+    wanted = [(cost_wta_plain(*a, **kw), cost_volume_plain(*a[1:], **kw))
+              for a in inputs]
+
+    def check():
+        return all(
+            all(cs.same_values(g, w) for g, w in zip(
+                cuda_cost_wta(*a, **kw), want_wta))
+            and cs.same_values(cuda_cost_volume(*a[1:], **kw), want_vol)
+            for a, (want_wta, want_vol) in zip(inputs, wanted)), {}
+
+    def times():
+        return {"WTA": cs.kernel_ms(lambda: cuda_cost_wta(*view0, **kw), 10,
+                                    dev, "cost_wta_kernel<5, false>",
+                                    strict=True)[0],
+                "volume": cs.kernel_ms(
+                    lambda: cuda_cost_volume(*view0[1:], **kw), 10, dev,
+                    "cost_wta_kernel<5, true>", strict=True)[0]}
+
+    return check, times
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline", type=Path, default=None,
                         help="another tree's csrc directory to time too")
+    parser.add_argument("--kernels", nargs="+", choices=list(VARIANTS),
+                        default=list(VARIANTS),
+                        help="the kernels whose variants to time")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: CUDA is not available")
     from stereoreconstruction_tpu_torch.config import MultiViewConfig
     from stereoreconstruction_tpu_torch.ops import cuda_build
-    from stereoreconstruction_tpu_torch.ops.cuda_mvs import (
-        cuda_mvs_topk, cuda_mvs_wta, mvs_topk_plain, mvs_wta_plain)
-    from stereoreconstruction_tpu_torch.ops.cuda_weights import (
-        cuda_geodesic_weights)
-    from stereoreconstruction_tpu_torch.ops.weights import geodesic_weights
 
     dev = torch.device("cuda")
     print(f"device: {torch.cuda.get_device_name(0)}")
@@ -145,10 +346,8 @@ def main():
     baseline = args.baseline.resolve() if args.baseline else None
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        kinds = {"mvs_sweep": variant_sources("mvs_sweep", SWEEP_VARIANTS,
-                                              baseline, tmp),
-                 "geodesic_weights": variant_sources(
-                     "geodesic_weights", WEIGHTS_VARIANTS, baseline, tmp)}
+        kinds = {k: variant_sources(k, VARIANTS[k], baseline, tmp)
+                 for k in args.kernels}
         t0 = time.perf_counter()
         libs = build([p for v in kinds.values() for _, p, _ in v], tmp)
         print(f"built {len(libs)} variants in "
@@ -168,76 +367,38 @@ def main():
                               image_scale=cs.SCALE,
                               cross_check_threshold=cs.CROSS_CHECK)
         rig = (cs.port_cameras(cams), cfg, rgbs.astype(np.float32), masks)
-        inputs, nv = cs.sweep_inputs(dev, rig)
-        s_in, s_nv, s_thr = cs.sweep_stress_inputs(dev, cfg.window_radius)
-        kw = dict(radius=cfg.window_radius, thr=float(cfg.ncc_threshold))
-        s_kw = dict(radius=cfg.window_radius, thr=s_thr)
-
-        def no_center(d):
-            return {k: v for k, v in d.items() if k != "center_valid"}
-
-        # (label, call, plain result) of each sweep mode and input
-        sweep_cases = [
-            ("WTA", lambda: cuda_mvs_wta(nbr_valid=nv, **kw, **inputs)[:2],
-             mvs_wta_plain(nbr_valid=nv, **kw, **inputs)),
-            ("top-K", lambda: cuda_mvs_topk(
-                nbr_valid=nv, top_k=cfg.top_k, **kw, **no_center(inputs))[:2],
-             mvs_topk_plain(nbr_valid=nv, top_k=cfg.top_k, **kw,
-                            **no_center(inputs))),
-            ("stress WTA",
-             lambda: cuda_mvs_wta(nbr_valid=s_nv, **s_kw, **s_in)[:2],
-             mvs_wta_plain(nbr_valid=s_nv, **s_kw, **s_in)),
-            ("stress top-K", lambda: cuda_mvs_topk(
-                nbr_valid=s_nv, top_k=cfg.top_k, **s_kw,
-                **no_center(s_in))[:2],
-             mvs_topk_plain(nbr_valid=s_nv, top_k=cfg.top_k, **s_kw,
-                            **no_center(s_in)))]
-        rgb = torch.as_tensor(rig[2][0], device=dev)
-        w_rgb, w_valid = cs.weights_stress_inputs(dev)
-        weight_cases = [(r, geodesic_weights(rgb, r, exact=False),
-                         geodesic_weights(w_rgb, r, exact=False,
-                                          pixel_valid=w_valid))
-                        for r in (2, 5)]
+        setup = {"mvs_sweep": lambda: sweep_cases(dev, rig, cfg),
+                 "geodesic_weights": lambda: weights_cases(dev, rig),
+                 "cost_wta": lambda: cost_cases(dev, rig)}
 
         results, failed = [], []
         for kind, variants in kinds.items():
+            check, times = setup[kind]()
             for name, path, timing_only in variants + variants[::-1]:
                 lib, ptxas = libs[path]
                 cuda_build._libs[kind] = lib
                 row = dict(kernel=kind, variant=name, timing_only=timing_only,
                            ptxas=ptxas)
-                if kind == "mvs_sweep":
-                    if not timing_only:
-                        row["bit_equal"] = all(
-                            torch.equal(got, want) for _, call, plain
-                            in sweep_cases for got, want in zip(call(), plain))
-                    row["ms"] = {
-                        "WTA": cs.kernel_ms(sweep_cases[0][1], 10, dev,
-                                            "mvs_sweep_kernel<2, 1>")[0],
-                        "top-K": cs.kernel_ms(sweep_cases[1][1], 10, dev,
-                                              "mvs_sweep_kernel<2, 9>")[0]}
-                else:
-                    row["max_abs_err"] = max(max(
-                        float((cuda_geodesic_weights(rgb, r) - want)
-                              .abs().max()),
-                        float((cuda_geodesic_weights(w_rgb, r, valid=w_valid)
-                               - s_want).abs().max()))
-                        for r, want, s_want in weight_cases)
-                    row["ms"] = {f"r={r}": cs.kernel_ms(
-                        lambda: cuda_geodesic_weights(rgb, r), 10, dev,
-                        f"geodesic_weights_kernel<{r}>")[0]
-                        for r, _, _ in weight_cases}
-                    row["bit_equal"] = row["max_abs_err"] <= 2e-5
+                if not timing_only:
+                    row["bit_equal"], extra = check()
+                    row.update(extra)
+                if hasattr(lib, "cost_wta_blocks_per_sm"):
+                    row["blocks_per_sm"] = [lib.cost_wta_blocks_per_sm(v)
+                                            for v in (0, 1)]
+                row["ms"] = times()
                 ok = timing_only or row["bit_equal"]
                 if not ok:
                     failed.append(f"{kind} {name}")
                 regs = ", ".join(f"{k['kernel']}: {k['registers']} regs, "
                                  f"{k['spill_stores']} B spilled"
                                  for k in ptxas)
-                times = ", ".join(f"{k} {v:.4f} ms"
-                                  for k, v in row["ms"].items())
+                times_s = ", ".join(f"{k} {v:.4f} ms"
+                                    for k, v in row["ms"].items())
                 verdict = "timing only" if timing_only else f"agrees {ok}"
-                print(f"{kind} | {name}: {times}; {verdict}; {regs}",
+                if "blocks_per_sm" in row:
+                    verdict += (f"; blocks an SM (WTA, volume) "
+                                f"{row['blocks_per_sm']}")
+                print(f"{kind} | {name}: {times_s}; {verdict}; {regs}",
                       flush=True)
                 results.append(row)
             cuda_build._libs[kind] = shipped[kind]

@@ -16,33 +16,58 @@
 // The volume mode writes the cost of every (label, pixel) instead, masked
 // pixels included (the MRF smooths across them).
 //
-// Taps are summed with s (rows) outer and t (columns) inner, the order of
-// fast_cost_plane; a tap whose weight, left validity or warp validity fails
-// is skipped (the plain version adds an exact 0 there); built with
-// --fmad=false, so the float32 cost is bit-equal to the plain version's and
-// the WTA picks agree.
+// Bound on the H100 (384 x 512, D = 100 labels, r = 5): the inputs are read
+// once in ~0.06 ms (the warped volume and its validity, 98 MB, and the 121
+// weight planes, 95 MB; the volume mode also writes 79 MB of costs).  The
+// arithmetic bounds it: ~1.7e9 evaluated (pixel, label, tap) triples, most
+// of them 6 float32 operations in the form below (3 products, 3 adds),
+// ~1.2e10 a view with the rest.  Built with --fmad=false, every operation
+// is an instruction: at the card's 33.5e12 float32 instructions a second
+// (half its 67 TFLOP/s, which counts an FMA as two) that is ~0.35 ms, and
+// the kernel issues more than that (taps outside the left mask, the shared
+// loads, the validity pre-pass, the NCC epilogue's IEEE divisions).
 //
-// Bound on the H100 (384 x 512, D = 100 labels, r = 5): up to 2.4e9 tap
-// evaluations of 12 float32 operations (2 products, 3 squares/cross
-// products, 7 adds) plus a ~30-operation epilogue a (pixel, label): about
-// 3e10 operations, ~0.45 ms at 67 TFLOP/s.  Bytes: the warped volume and
-// its validity (98 MB) and the 121 weight planes (95 MB), read once:
-// ~0.06 ms.  The bound is the operations.  The volume mode writes D x H x W
-// float32 costs (79 MB, 0.02 ms) besides: still the operations.
+// Tensor cores do not apply: each pixel has its own 121-weight vector, so
+// the sums are per-pixel weighted dot products with no operand shared
+// across pixels, and bit-equality fixes the order (and rounding) of every
+// sum.  wgmma and mma need both a shared operand and a free order.
 //
-// Design: the TPU kernel kept a row tile's 121 weight planes and its
-// reference windows resident in VMEM across the whole depth sweep and
-// streamed one warped slice per depth.  Here a block owns a 32 x 4 pixel
-// tile, one thread a pixel: the tile's [121, 128] weights (62 KB) and its
-// reference gray halo sit in shared memory for the whole sweep, each
-// thread's left-tap bits (left validity & weight > 1e-10) in 4 registers,
-// and the WTA carry (min, second, best) in registers.  The depth loop runs
-// inside the kernel (the TPU's sequential grid axis): per depth the block
-// stages the warped plane's halo tile and its validity into shared memory,
-// then each thread sums its taps from there.  67 KB of shared memory a
-// block at r = 5 (3 blocks, 12 warps an SM).  The volume mode is a template
-// flag: the same arithmetic in the same tap order, so each cost is the one
-// the WTA mode would compare, with one coalesced store a (label, pixel).
+// Design.  The TPU kernel kept a row tile's weights and reference windows
+// in VMEM for the whole depth sweep and streamed one warped slice a depth.
+// Here a block of four warps owns a 32 x 4 pixel tile, one thread a pixel,
+// and walks the labels in chunks of kL = 4:
+// - shared memory holds, for the whole sweep, the tile's 121 weight planes
+//   ([tap][thread], 62 KB; a tap outside the pixel's left mask, left
+//   validity & weight > 1e-10, is stored as -0.0, so that its sign is the
+//   mask bit and its products add exact zeros) and the reference gray
+//   halo; and, for the current chunk, the warped halo with the chunk's four
+//   labels in one 16-byte cell (one load a tap for all four) and the
+//   validity, one 32-bit word a cell (bit l = label l of the chunk; one
+//   load a tap for all labels).  76,064 B a block: 3 blocks, 12 warps, an
+//   SM, with the largest shared-memory carveout asked for.
+// - staging: cp.async copies of 4 bytes (the halo starts at any column, and
+//   a 61 x 83 image's 332-byte rows rule out TMA's 16-byte strides; outside
+//   the image and past D they zero-fill), validity bytes packed into words,
+//   a barrier.  Not double-buffered: with 3 blocks an SM the others cover a
+//   block's staging, and the prefetch's registers and shared memory cost
+//   more than it saved (kernel_variants.py's ablation).
+// - the label-independent sums (weights, left values, their squares, the
+//   count) over the left mask are computed once a pixel, in tap order.  A
+//   pre-pass ANDs the chunk's validity words over the left-mask taps: a
+//   (pixel, label) whose left-mask taps all have a valid warp sample sums,
+//   in the plain version, exactly those terms in that order.  If every
+//   label of every lane of a warp passes (most warps), the warp sums only
+//   the right value, its square and the cross product, 6 operations a tap
+//   and label, taps outside the left mask adding exact zeros.  Otherwise
+//   the whole warp sums all seven sums of every label, a failing tap taking
+//   weight +0 so that everything it adds is an exact 0, with no branch.
+//   Taps run outside and labels inside, each label's sums in tap order
+//   (rows outer, columns inner), so every sum is the plain version's.
+// - the epilogue is ops/ncc.py ncc_from_sums operation for operation; the
+//   WTA carry walks the chunk's costs in label order (labels past D never
+//   enter it); the volume mode stores each label's costs coalesced.  Built
+//   with --fmad=false, the float32 costs, and so the picks, are the plain
+//   version's bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -50,9 +75,22 @@
 
 namespace {
 
-constexpr int kTW = 32;            // tile columns (one warp)
+constexpr int kTW = 32;            // tile columns (a warp)
 constexpr int kTH = 4;             // tile rows
 constexpr int kThreads = kTW * kTH;
+// the shared-memory stride of a halo row (>= kTW + 2r; a warp narrower
+// than 32 columns needs one that puts its rows on distinct banks)
+constexpr int kHS = 42;
+constexpr int kL = 4;              // labels a chunk
+constexpr int kLP = kL % 4 == 0 ? 4 : 1;   // labels a warped-halo cell
+constexpr int kNP = kL / kLP;              // warped-halo planes a chunk
+constexpr int kFullGroup = kLP;            // labels a sweep of the full pass
+// design switches; kernel_variants.py times the other setting of each
+constexpr bool kDoubleBuffer = false;
+constexpr bool kPackedValidity = true;
+constexpr bool kHoist = true;
+constexpr float kWeps = 1e-10f;
+static_assert(kL <= 32, "a chunk's validity bits fill one word");
 
 template <int R>
 struct Tile {
@@ -60,13 +98,150 @@ struct Tile {
   static constexpr int T = S * S;
   static constexpr int HH = kTH + 2 * R;      // halo rows
   static constexpr int HW = kTW + 2 * R;      // halo columns
-  static constexpr int NH = HH * HW;
+  static constexpr int HS = kHS;              // their stride in shared memory
+  static_assert(HS >= HW, "a halo row fits its stride");
+  static constexpr int NC = HH * HW;          // halo cells
+  static constexpr int NH = (HH - 1) * HS + HW;   // their shared-memory span
+  static constexpr int kCells = (NC + kThreads - 1) / kThreads;
+  // 32-bit words of shared memory: weights, gray halo, and a buffer's
+  // warped halo and validity
+  static constexpr int kW = T * kThreads;
+  static constexpr int kG = (NH + 3) / 4 * 4;   // the warped halo 16 B aligned
+  static constexpr int kRBuf = NH * kL;
+  static constexpr int kVBuf = kPackedValidity ? NH : (NH * kL + 3) / 4;
+  static constexpr int kBufs = kDoubleBuffer ? 2 : 1;
+  static_assert(kLP != 4 || ((kW + kG) % 4 == 0 && kRBuf % 4 == 0),
+                "the warped halos' float4 loads are aligned");
   static constexpr size_t kSmem =
-      (size_t)T * kThreads * sizeof(float) + 2 * NH * sizeof(float) + NH;
+      (size_t)(kW + kG + kBufs * (kRBuf + kVBuf)) * sizeof(float);
 };
 
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool copy) {
+  // copies 4 bytes, or zero-fills them when !copy (src is then not read)
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(copy ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// the validity bits of halo cell h: bit l = label l of the chunk
+template <int NH>
+__device__ __forceinline__ uint32_t valid_word(const uint32_t* v, int h) {
+  if constexpr (kPackedValidity) {
+    return v[h];
+  } else {
+    const uint8_t* b = reinterpret_cast<const uint8_t*>(v);
+    uint32_t word = 0u;
+#pragma unroll
+    for (int l = 0; l < kL; ++l) word |= (uint32_t)b[l * NH + h] << l;
+    return word;
+  }
+}
+
+// the warped values of labels l0 .. l0 + n - 1 of the chunk at halo cell h
+// (l0 and n multiples of kLP)
+template <int NH, int n>
+__device__ __forceinline__ void load_r_group(const float* rb, int h, int l0,
+                                             float (&r)[n]) {
+  if constexpr (kLP == 4) {
+#pragma unroll
+    for (int p = 0; p < n / 4; ++p) {
+      const float4 q =
+          reinterpret_cast<const float4*>(rb + (l0 / 4 + p) * NH * 4)[h];
+      r[4 * p] = q.x;
+      r[4 * p + 1] = q.y;
+      r[4 * p + 2] = q.z;
+      r[4 * p + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < n; ++j) r[j] = rb[(l0 + j) * NH + h];
+  }
+}
+
+// ops/ncc.py ncc_from_sums, two-view mode, operation for operation
+__device__ __forceinline__ float ncc_cost(float s_w, float s_l, float s_r,
+                                          float s_ll, float s_rr, float s_lr,
+                                          float n, float max_color_diff,
+                                          float bad_ret) {
+  const bool have = s_w > kWeps;
+  const float s_w_safe = have ? s_w : 1.f;
+  const float mean_l = s_l / s_w_safe;
+  const float mean_r = s_r / s_w_safe;
+  const float sum1 = s_lr - mean_l * s_r - mean_r * s_l + n * mean_l * mean_r;
+  const float sum2 = s_ll - 2.f * mean_l * s_l + n * mean_l * mean_l;
+  const float sum3 = s_rr - 2.f * mean_r * s_r + n * mean_r * mean_r;
+  float v = 255.f * (1.f - fabsf(sum1) / sqrtf(sum2 * sum3));
+  v = isnan(v) ? max_color_diff : (v < max_color_diff ? v : max_color_diff);
+  return have ? v : bad_ret;
+}
+
+// Starts staging chunk c (labels c*kL ...) into one buffer: the warped halo
+// by cp.async (zeros outside the image and past D), the validity bytes into
+// registers (0 there), to be packed by store_valid.  A thread stages its
+// own cells for every label of the chunk.
+template <int R>
+__device__ __forceinline__ void stage_begin(
+    float* rb, const float* __restrict__ warped,
+    const uint8_t* __restrict__ wvalid, uint32_t (&raw)[Tile<R>::kCells][kL],
+    int c, int D, int H, int W, int x0, int y0, int tid) {
+  using Tl = Tile<R>;
+  constexpr int HW = Tl::HW, HS = Tl::HS, NH = Tl::NH;
+  const size_t HWp = (size_t)H * W;
+#pragma unroll
+  for (int j = 0; j < Tl::kCells; ++j) {
+    const int i = tid + j * kThreads;
+    const int si = i / HW * HS + i % HW;
+    const int hy = y0 - R + i / HW, hx = x0 - R + i % HW;
+    const bool in = i < Tl::NC && hy >= 0 && hy < H && hx >= 0 && hx < W;
+    const size_t q = in ? (size_t)hy * W + hx : 0;
+#pragma unroll
+    for (int l = 0; l < kL; ++l) {
+      const int d = c * kL + l;
+      const bool ok = in && d < D;
+      const size_t off = ok ? (size_t)d * HWp + q : 0;
+      if (i < Tl::NC)
+        cp_async4(rb + (l / kLP) * NH * kLP + si * kLP + l % kLP,
+                  warped + off, ok);
+      raw[j][l] = ok ? (uint32_t)wvalid[off] : 0u;
+    }
+  }
+  cp_async_commit();
+}
+
+template <int R>
+__device__ __forceinline__ void store_valid(
+    uint32_t* vb, const uint32_t (&raw)[Tile<R>::kCells][kL], int tid) {
+  using Tl = Tile<R>;
+  constexpr int NH = Tl::NH;
+#pragma unroll
+  for (int j = 0; j < Tl::kCells; ++j) {
+    const int n = tid + j * kThreads;
+    if (n >= Tl::NC) continue;
+    const int i = n / Tl::HW * Tl::HS + n % Tl::HW;
+    if constexpr (kPackedValidity) {
+      uint32_t word = 0u;
+#pragma unroll
+      for (int l = 0; l < kL; ++l) word |= (raw[j][l] != 0u ? 1u : 0u) << l;
+      vb[i] = word;
+    } else {
+      uint8_t* b = reinterpret_cast<uint8_t*>(vb);
+#pragma unroll
+      for (int l = 0; l < kL; ++l) b[l * NH + i] = raw[j][l] != 0u ? 1 : 0;
+    }
+  }
+}
+
 template <int R, bool kVolume>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 cost_wta_kernel(const float* __restrict__ depths,
                 const float* __restrict__ warped,
                 const uint8_t* __restrict__ wvalid,
@@ -77,15 +252,13 @@ cost_wta_kernel(const float* __restrict__ depths,
                 float* __restrict__ best_out, int H, int W, int D,
                 float max_color_diff, float bad_ret) {
   using Tl = Tile<R>;
-  constexpr int S = Tl::S, T = Tl::T, HW = Tl::HW, NH = Tl::NH;
-  constexpr int NW = (T + 31) / 32;
-  const float weps = (float)1e-10;
+  constexpr int S = Tl::S, T = Tl::T, HW = Tl::HW, HS = Tl::HS, NH = Tl::NH;
 
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   float* w_s = smem;                         // [T][kThreads]
-  float* g_s = w_s + T * kThreads;           // [HH][HW] reference gray
-  float* r_s = g_s + NH;                     // [HH][HW] warped plane
-  uint8_t* v_s = (uint8_t*)(r_s + NH);       // [HH][HW] its validity
+  float* g_s = w_s + Tl::kW;                 // [HH][HS] reference gray
+  float* r_s = g_s + Tl::kG;                 // [kBufs][kNP][HH][HS][kLP]
+  uint32_t* v_s = reinterpret_cast<uint32_t*>(r_s + Tl::kBufs * Tl::kRBuf);
 
   const int tid = threadIdx.x;
   const int tx = tid % kTW, ty = tid / kTW;
@@ -94,89 +267,218 @@ cost_wta_kernel(const float* __restrict__ depths,
   const bool inside = x < W && y < H;
   const int HWp = H * W;
   const int p = y * W + x;
+  const int n_chunks = (D + kL - 1) / kL;
 
-  for (int i = tid; i < NH; i += kThreads) {
+  // the first chunk, the weights and the gray halo, all by cp.async
+  uint32_t raw[Tl::kCells][kL];
+  stage_begin<R>(r_s, warped, wvalid, raw, 0, D, H, W, x0, y0, tid);
+  for (int k = 0; k < T; ++k)
+    cp_async4(w_s + k * kThreads + tid,
+              weights + (inside ? (size_t)k * HWp + p : 0), inside);
+  for (int i = tid; i < Tl::NC; i += kThreads) {
     const int hy = y0 - R + i / HW, hx = x0 - R + i % HW;
     const bool in = hy >= 0 && hy < H && hx >= 0 && hx < W;
-    g_s[i] = in ? gray_ref[hy * W + hx] : 0.f;
+    cp_async4(g_s + i / HW * HS + i % HW,
+              gray_ref + (in ? hy * W + hx : 0), in);
   }
-  uint32_t lmask[NW];
+  cp_async_commit();
+  store_valid<R>(v_s, raw, tid);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // each thread's own weights: -0.0 outside its left mask; and the
+  // label-independent sums over the mask, in tap order (a skipped tap adds
+  // an exact +0)
+  float h_w = 0.f, h_l = 0.f, h_ll = 0.f, h_n = 0.f;
+#pragma unroll 1
+  for (int s = 0; s < S; ++s) {
+    const int ly = y + s - R;
 #pragma unroll
-  for (int j = 0; j < NW; ++j) lmask[j] = 0u;
-#pragma unroll
-  for (int k = 0; k < T; ++k) {
-    const float wk = inside ? weights[(size_t)k * HWp + p] : 0.f;
-    w_s[k * kThreads + tid] = wk;
-    const int ly = y + k / S - R, lx = x + k % S - R;
-    const bool lv = inside && ly >= 0 && ly < H && lx >= 0 && lx < W &&
-                    left_valid[ly * W + lx] && wk > weps;
-    if (lv) lmask[k >> 5] |= 1u << (k & 31);
+    for (int t = 0; t < S; ++t) {
+      float* wk_s = w_s + (s * S + t) * kThreads + tid;
+      const float wk = *wk_s;
+      const int lx = x + t - R;
+      const bool on = inside && ly >= 0 && ly < H && lx >= 0 && lx < W &&
+                      left_valid[ly * W + lx] && wk > kWeps;
+      const float wl = wk * g_s[(ty + s) * HS + tx + t];
+      h_w = h_w + (on ? wk : 0.f);
+      h_l = h_l + (on ? wl : 0.f);
+      h_ll = h_ll + (on ? wl * wl : 0.f);
+      h_n = h_n + (on ? 1.f : 0.f);
+      *wk_s = on ? wk : -0.f;
+    }
   }
 
   float min_c = INFINITY, second = INFINITY, best = NAN;
-  for (int d = 0; d < D; ++d) {
-    __syncthreads();                         // the last plane is consumed
-    const float* wp = warped + (size_t)d * HWp;
-    const uint8_t* vp = wvalid + (size_t)d * HWp;
-    for (int i = tid; i < NH; i += kThreads) {
-      const int hy = y0 - R + i / HW, hx = x0 - R + i % HW;
-      const bool in = hy >= 0 && hy < H && hx >= 0 && hx < W;
-      r_s[i] = in ? wp[hy * W + hx] : 0.f;
-      v_s[i] = in ? vp[hy * W + hx] : 0;
+  for (int c = 0; c < n_chunks; ++c) {
+    int buf = 0;
+    if constexpr (kDoubleBuffer) {
+      buf = c & 1;
+      if (c + 1 < n_chunks)
+        stage_begin<R>(r_s + (buf ^ 1) * Tl::kRBuf, warped, wvalid, raw,
+                       c + 1, D, H, W, x0, y0, tid);
+    } else if (c > 0) {
+      stage_begin<R>(r_s, warped, wvalid, raw, c, D, H, W, x0, y0, tid);
+      store_valid<R>(v_s, raw, tid);
+      cp_async_wait_all();
+      __syncthreads();
     }
-    __syncthreads();
-    if (!inside) continue;
+    const float* rb = r_s + buf * Tl::kRBuf;
+    const uint32_t* vb = v_s + buf * Tl::kVBuf;
 
-    float cost = INFINITY;
-    if (v_s[(ty + R) * HW + tx + R]) {
-      float s_w = 0.f, s_l = 0.f, s_r = 0.f, s_ll = 0.f, s_rr = 0.f,
-            s_lr = 0.f, n = 0.f;
+    // labels whose own warp sample is valid (none past D)
+    const uint32_t centre =
+        inside ? valid_word<NH>(vb, (ty + R) * HS + tx + R) : 0u;
+    // labels with an invalid warp sample on a left-mask tap
+    uint32_t broken = 0u;
+    if (centre) {
+      uint32_t all_valid = ~0u;
+      if constexpr (kHoist) {
+#pragma unroll 1
+        for (int s = 0; s < S; ++s) {
+          const float* wrow = w_s + s * S * kThreads + tid;
+          const int hrow = (ty + s) * HS + tx;
 #pragma unroll
-      for (int s = 0; s < S; ++s) {
+          for (int t = 0; t < S; ++t)
+            all_valid &= valid_word<NH>(vb, hrow + t) |
+                         (uint32_t)(__float_as_int(wrow[t * kThreads]) >> 31);
+        }
+      } else {
+        all_valid = 0u;
+      }
+      broken = centre & ~all_valid;
+    }
+    float cost[kL];
 #pragma unroll
-        for (int t = 0; t < S; ++t) {
-          const int k = s * S + t;
-          const int h = (ty + s) * HW + tx + t;
-          if (((lmask[k >> 5] >> (k & 31)) & 1u) && v_s[h]) {
-            const float wk = w_s[k * kThreads + tid];
+    for (int l = 0; l < kL; ++l) cost[l] = INFINITY;
+    if (!__any_sync(0xffffffffu, broken != 0u)) {
+      // every label of every lane hoisted: the right-hand sums alone
+      if (centre) {
+        float sr[kL], srr[kL], slr[kL];
+#pragma unroll
+        for (int l = 0; l < kL; ++l) sr[l] = srr[l] = slr[l] = 0.f;
+#pragma unroll 1
+        for (int s = 0; s < S; ++s) {
+          const float* wrow = w_s + s * S * kThreads + tid;
+          const int hrow = (ty + s) * HS + tx;
+#pragma unroll
+          for (int t = 0; t < S; ++t) {
+            const int h = hrow + t;
+            const float wk = wrow[t * kThreads];
             const float wl = wk * g_s[h];
-            const float wr = wk * r_s[h];
-            s_w = s_w + wk;
-            s_l = s_l + wl;
-            s_r = s_r + wr;
-            s_ll = s_ll + wl * wl;
-            s_rr = s_rr + wr * wr;
-            s_lr = s_lr + wl * wr;
-            n = n + 1.f;
+            float r[kL];
+            load_r_group<NH, kL>(rb, h, 0, r);
+#pragma unroll
+            for (int l = 0; l < kL; ++l) {
+              const float wr = wk * r[l];
+              sr[l] = sr[l] + wr;
+              srr[l] = srr[l] + wr * wr;
+              slr[l] = slr[l] + wl * wr;
+            }
           }
         }
+#pragma unroll
+        for (int l = 0; l < kL; ++l)
+          if ((centre >> l) & 1u)
+            cost[l] = ncc_cost(h_w, h_l, sr[l], h_ll, srr[l], slr[l], h_n,
+                               max_color_diff, bad_ret);
       }
-      // ops/ncc.py ncc_from_sums, two-view mode, operation for operation
-      const bool have = s_w > weps;
-      const float s_w_safe = have ? s_w : 1.f;
-      const float mean_l = s_l / s_w_safe;
-      const float mean_r = s_r / s_w_safe;
-      const float sum1 =
-          s_lr - mean_l * s_r - mean_r * s_l + n * mean_l * mean_r;
-      const float sum2 = s_ll - 2.f * mean_l * s_l + n * mean_l * mean_l;
-      const float sum3 = s_rr - 2.f * mean_r * s_r + n * mean_r * mean_r;
-      float v = 255.f * (1.f - fabsf(sum1) / sqrtf(sum2 * sum3));
-      v = isnan(v) ? max_color_diff : (v < max_color_diff ? v : max_color_diff);
-      cost = have ? v : bad_ret;
+    } else if (centre) {
+      // the warp has a label that is not: every sum of every label over
+      // the taps where its left mask and warp sample hold.  A tap that
+      // fails takes weight +0, so every term it adds is an exact 0 (a sum
+      // is never -0) and no branch is needed; its count is an integer.
+      // kFullGroup labels a sweep, so that the sums stay in registers.
+#pragma unroll
+      for (int l0 = 0; l0 < kL; l0 += kFullGroup) {
+        float sw[kFullGroup], sl[kFullGroup], sr[kFullGroup],
+            sll[kFullGroup], srr[kFullGroup], slr[kFullGroup];
+        int sn[kFullGroup];
+#pragma unroll
+        for (int j = 0; j < kFullGroup; ++j) {
+          sw[j] = sl[j] = sr[j] = sll[j] = srr[j] = slr[j] = 0.f;
+          sn[j] = 0;
+        }
+#pragma unroll 1
+        for (int s = 0; s < S; ++s) {
+          const float* wrow = w_s + s * S * kThreads + tid;
+          const int hrow = (ty + s) * HS + tx;
+#pragma unroll
+          for (int t = 0; t < S; ++t) {
+            const int h = hrow + t;
+            const float wk = wrow[t * kThreads];
+            const float g = g_s[h];
+            const uint32_t on = (valid_word<NH>(vb, h) &
+                                 ~(uint32_t)(__float_as_int(wk) >> 31)) >>
+                                l0;
+            float r[kFullGroup];
+            load_r_group<NH, kFullGroup>(rb, h, l0, r);
+#pragma unroll
+            for (int j = 0; j < kFullGroup; ++j) {
+              const bool b = on & (1u << j);
+              const float wj = b ? wk : 0.f;
+              const float wl = wj * g;
+              const float wr = wj * r[j];
+              sw[j] = sw[j] + wj;
+              sl[j] = sl[j] + wl;
+              sr[j] = sr[j] + wr;
+              sll[j] = sll[j] + wl * wl;
+              srr[j] = srr[j] + wr * wr;
+              slr[j] = slr[j] + wl * wr;
+              sn[j] += b;
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kFullGroup; ++j)
+          if ((centre >> (l0 + j)) & 1u)
+            cost[l0 + j] = ncc_cost(sw[j], sl[j], sr[j], sll[j], srr[j],
+                                    slr[j], (float)sn[j], max_color_diff,
+                                    bad_ret);
+      }
     }
-    if (kVolume) {
-      min_out[(size_t)d * HWp + p] = cost;
-    } else if (cost + (float)1e-10 < min_c) {
-      second = min_c;
-      min_c = cost;
-      best = depths[d];
+    if (inside) {
+#pragma unroll
+      for (int l = 0; l < kL; ++l) {
+        const int d = c * kL + l;
+        if (d >= D) break;
+        if (kVolume) {
+          min_out[(size_t)d * HWp + p] = cost[l];
+        } else if (cost[l] + (float)1e-10 < min_c) {
+          second = min_c;
+          min_c = cost[l];
+          best = depths[d];
+        }
+      }
     }
+
+    if constexpr (kDoubleBuffer) {
+      if (c + 1 < n_chunks) store_valid<R>(v_s + (buf ^ 1) * Tl::kVBuf, raw,
+                                           tid);
+      cp_async_wait_all();
+    }
+    __syncthreads();                         // this chunk's buffer is free
   }
   if (!kVolume && inside) {
     min_out[p] = min_c;
     second_out[p] = second;
     best_out[p] = best;
   }
+}
+
+// Lets the kernel take its dynamic shared memory and asks for the largest
+// shared-memory share of the SM (by default the split may hold fewer
+// blocks than the shared memory would).
+template <int R, bool kVolume>
+cudaError_t configure() {
+  cudaError_t err = cudaFuncSetAttribute(
+      cost_wta_kernel<R, kVolume>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tile<R>::kSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(cost_wta_kernel<R, kVolume>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  return err;
 }
 
 template <int R, bool kVolume>
@@ -186,9 +488,7 @@ int launch(const float* depths, const float* warped, const uint8_t* wvalid,
            float* best_out, int H, int W, int D, float max_color_diff,
            float bad_ret, cudaStream_t stream) {
   const size_t smem = Tile<R>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(
-      cost_wta_kernel<R, kVolume>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err = configure<R, kVolume>();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH);
   cost_wta_kernel<R, kVolume><<<grid, kThreads, smem, stream>>>(
@@ -234,4 +534,19 @@ extern "C" int cost_volume_launch(const float* warped, const uint8_t* wvalid,
   return launch<5, true>(nullptr, warped, wvalid, gray_ref, left_valid,
                          weights, volume, nullptr, nullptr, H, W, D,
                          max_color_diff, bad_ret, stream);
+}
+
+// The blocks of the kernel (volume mode or not) resident on one SM, as the
+// runtime computes them for its threads and shared memory; 0 on an error.
+extern "C" int cost_wta_blocks_per_sm(int volume) {
+  int n = 0;
+  const cudaError_t err =
+      volume ? configure<5, true>() : configure<5, false>();
+  if (err != cudaSuccess) return 0;
+  const cudaError_t occ =
+      volume ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &n, cost_wta_kernel<5, true>, kThreads, Tile<5>::kSmem)
+             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &n, cost_wta_kernel<5, false>, kThreads, Tile<5>::kSmem);
+  return occ == cudaSuccess ? n : 0;
 }

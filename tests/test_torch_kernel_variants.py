@@ -18,6 +18,7 @@ import kernel_variants  # noqa: E402
 @pytest.mark.parametrize("kernel,variants", [
     ("mvs_sweep", kernel_variants.SWEEP_VARIANTS),
     ("geodesic_weights", kernel_variants.WEIGHTS_VARIANTS),
+    ("cost_wta", kernel_variants.COST_VARIANTS),
 ])
 def test_every_variant_applies_to_the_shipped_source(tmp_path, kernel,
                                                      variants):

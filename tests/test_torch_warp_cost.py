@@ -15,10 +15,29 @@
 * the cost sweep's plain version against JAX ``fast_cost_plane`` and the
   WTA update, with the left validity taken as given (as the cost kernel
   and JAX ``pallas_cost_wta`` take it): same tolerance;
-* the kernel wrappers on CPU tensors: their plain versions, no launch.
+* the kernel wrappers on CPU tensors: their plain versions, no launch;
+* both plain versions of the cost kernel (volume and WTA) against JAX
+  ``fast_cost_plane`` and ``_wta_scan`` at radius 5 on ``chip_smoke.py``'s
+  structured stress input (holes inside and outside the left masks, an
+  invalid label plane, flat and empty windows, a tie): in float64 every
+  class, pick and second equal and the costs within 1e-9 (XLA's FMAs
+  round differently); in float32 the classes equal, the costs within
+  1e-4 relative (over 121 taps of values up to 255, XLA's FMAs move a
+  cost by up to ~20 float32 ulps: 1.5e-4 absolute, 1.4e-5 relative) and
+  the picks equal on >= 99.5% of pixels (a float32 near-tie may flip
+  one);
+* a torch emulation of the cost kernel's arithmetic (label chunks, taps
+  outside the left mask weighted -0.0, the label-independent sums hoisted
+  per pixel and reused where every left-mask tap has a valid warp sample,
+  the full sums elsewhere): bit-equal to both plain versions, so the
+  kernel's shortcuts are exact.
 """
 
+import pathlib
+import sys
+
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -29,10 +48,12 @@ from stereoreconstruction_tpu.ops.sampling import (
 from stereoreconstruction_tpu.ops.weights import geodesic_weights as jgw
 from stereoreconstruction_tpu.stereo.depthsweep import (
     depth_labels_twoview as j_labels)
+from stereoreconstruction_tpu.stereo.twoview import _wta_scan as j_wta_scan
 from stereoreconstruction_tpu_torch.config import TwoViewConfig
 from stereoreconstruction_tpu_torch.ops import ncc_fast as tnf
 from stereoreconstruction_tpu_torch.ops.cuda_cost_wta import (
-    cost_wta_plain, cuda_cost_wta)
+    cost_volume_plain, cost_wta_plain, cuda_cost_wta, wta_scan)
+from stereoreconstruction_tpu_torch.ops.ncc import ncc_from_sums
 from stereoreconstruction_tpu_torch.ops.cuda_warp import cuda_warp_bilinear
 from stereoreconstruction_tpu_torch.ops.sampling import (
     bilinear_sample, sample_valid)
@@ -43,6 +64,9 @@ from stereoreconstruction_tpu_torch.stereo.depthsweep import (
 
 from synth import converging_rig, render_scene
 from test_torch_mvs import port_cameras
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+from chip_smoke import cost_stress_inputs, same_values  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -246,3 +270,137 @@ def test_cost_sweep_takes_left_validity_as_given(scene):
     same = (got[2].numpy() == best) | (np.isnan(got[2].numpy())
                                        & np.isnan(best))
     assert same.mean() >= 0.995
+
+
+STRESS_RADIUS = 5           # the cost kernel's radius (TwoViewConfig)
+
+
+def _stress(dtype):
+    """chip_smoke.py's structured stress input on the CPU."""
+    return cost_stress_inputs(torch.device("cpu"), STRESS_RADIUS,
+                              dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cost_plain_versions_match_jax_on_stress_input(dtype):
+    depths, warped, wvalid, gray, left, weights = _stress(dtype)
+    vol = cost_volume_plain(warped, wvalid, gray, left, weights,
+                            radius=STRESS_RADIUS)
+    got = cost_wta_plain(depths, warped, wvalid, gray, left, weights,
+                         radius=STRESS_RADIUS)
+
+    h, w = gray.shape
+    jref = jnf.make_ref_view(jnp.asarray(gray.numpy()),
+                             jnp.asarray(left.numpy()),
+                             jnp.asarray(weights.numpy()), STRESS_RADIUS,
+                             inb=jnp.ones((h, w), bool))
+    jvol = jax.jit(jax.vmap(lambda wp, wv: jnf.fast_cost_plane(
+        jref, wp, wv)))(jnp.asarray(warped.numpy()),
+                        jnp.asarray(wvalid.numpy()))
+    jdepths = jnp.asarray(depths.numpy())
+    want = [np.asarray(a) for a in j_wta_scan(
+        lambda d: (jvol[d], jdepths[d]), jdepths, (h, w), jvol.dtype)]
+    jvol = np.asarray(jvol)
+
+    vol = vol.numpy()
+    for c in (np.inf, 1000.0, 120.0):        # every class is present
+        assert (vol == c).any() and ((vol == c) == (jvol == c)).all(), c
+    fin = np.isfinite(jvol)
+    tol = (dict(rtol=0, atol=1e-9) if dtype == torch.float64
+           else dict(rtol=1e-4, atol=0))
+    np.testing.assert_allclose(vol[fin], jvol[fin], **tol)
+    for g, want_g in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(np.isinf(g.numpy()), np.isinf(want_g))
+        ok = np.isfinite(want_g)
+        np.testing.assert_allclose(g.numpy()[ok], want_g[ok], **tol)
+    best = got[2].numpy()
+    same = (best == want[2]) | (np.isnan(best) & np.isnan(want[2]))
+    assert same.mean() >= (1.0 if dtype == torch.float64 else 0.995)
+
+
+def _emulated_volume(warped, wvalid, gray, left, weights, radius, chunk,
+                     max_color_diff=120.0, bad_ret=1000.0):
+    """The cost kernel's arithmetic in torch: labels in chunks of
+    ``chunk`` (the last one padded with zero, invalid planes), taps outside
+    the left mask weighted -0.0, the hoisted first pass over every label
+    and the full pass where a left-mask tap's warp sample is invalid.
+    Also returns the share of units the first pass settled."""
+    size = 2 * radius + 1
+    n, h, w = warped.shape
+    pad = (radius,) * 4
+    gpad = torch.nn.functional.pad(gray[None], pad)[0]
+    lpad = torch.nn.functional.pad(left[None], pad, value=False)[0]
+    taps = [(s, t) for s in range(size) for t in range(size)]
+    lmask = [lpad[s:s + h, t:t + w] & (weights[s, t] > 1e-10)
+             for s, t in taps]
+    wk = [torch.where(m, weights[s, t], -0.0) for m, (s, t) in zip(lmask,
+                                                                   taps)]
+    wl = [k * gpad[s:s + h, t:t + w] for k, (s, t) in zip(wk, taps)]
+    zero = torch.zeros((h, w), dtype=warped.dtype)
+    h_w = h_l = h_ll = h_n = zero
+    for m, k, kl in zip(lmask, wk, wl):
+        h_w = torch.where(m, h_w + k, h_w)
+        h_l = torch.where(m, h_l + kl, h_l)
+        h_ll = torch.where(m, h_ll + kl * kl, h_ll)
+        h_n = torch.where(m, h_n + 1.0, h_n)
+
+    n_pad = -n % chunk
+    wpad = torch.nn.functional.pad(
+        torch.cat([warped, warped.new_zeros((n_pad, h, w))]), pad)
+    vpad = torch.nn.functional.pad(
+        torch.cat([wvalid, wvalid.new_zeros((n_pad, h, w))]), pad,
+        value=False)
+    costs, settled = [], []
+    for c0 in range(0, n, chunk):
+        r = [wpad[c0:c0 + chunk, s:s + h, t:t + w] for s, t in taps]
+        v = [vpad[c0:c0 + chunk, s:s + h, t:t + w] for s, t in taps]
+        zc = warped.new_zeros((chunk, h, w))
+        s_r = s_rr = s_lr = zc
+        all_valid = torch.ones((chunk, h, w), dtype=torch.bool)
+        for m, k, kl, rk, vk in zip(lmask, wk, wl, r, v):
+            wr = k * rk
+            s_r = s_r + wr
+            s_rr = s_rr + wr * wr
+            s_lr = s_lr + kl * wr
+            all_valid &= vk | ~m
+        f_w = f_l = f_r = f_ll = f_rr = f_lr = f_n = zc
+        for m, k, kl, rk, vk in zip(lmask, wk, wl, r, v):
+            on = vk & m
+            wr = k * rk
+            f_w = torch.where(on, f_w + k, f_w)
+            f_l = torch.where(on, f_l + kl, f_l)
+            f_r = torch.where(on, f_r + wr, f_r)
+            f_ll = torch.where(on, f_ll + kl * kl, f_ll)
+            f_rr = torch.where(on, f_rr + wr * wr, f_rr)
+            f_lr = torch.where(on, f_lr + kl * wr, f_lr)
+            f_n = torch.where(on, f_n + 1.0, f_n)
+        centre = vpad[c0:c0 + chunk, radius:radius + h, radius:radius + w]
+        full = centre & ~all_valid
+        sums = [torch.where(full, f, hoisted) for f, hoisted in (
+            (f_w, h_w), (f_l, h_l), (f_r, s_r), (f_ll, h_ll), (f_rr, s_rr),
+            (f_lr, s_lr), (f_n, h_n))]
+        costs.append(ncc_from_sums(*sums, centre, mvs_mode=False,
+                                   max_color_diff=max_color_diff,
+                                   bad_ret=bad_ret))
+        settled.append(centre & all_valid)
+    hoisted_share = float(torch.cat(settled)[:n].sum()) / max(
+        int(wvalid.sum()), 1)
+    return torch.cat(costs)[:n], hoisted_share
+
+
+@pytest.mark.parametrize("chunk", [4, 8])
+def test_hoisted_chunked_arithmetic_is_exact(chunk):
+    depths, warped, wvalid, gray, left, weights = _stress(torch.float32)
+    assert warped.shape[0] % chunk != 0
+    kw = dict(radius=STRESS_RADIUS)
+    vol, hoisted_share = _emulated_volume(warped, wvalid, gray, left,
+                                          weights, STRESS_RADIUS, chunk)
+    # both paths are taken
+    assert 0.2 < hoisted_share < 0.9, hoisted_share
+    assert torch.equal(vol, cost_volume_plain(warped, wvalid, gray, left,
+                                              weights, **kw))
+    got = wta_scan(lambda d: (vol[d], depths[d]), depths, gray.shape,
+                   vol.dtype)
+    want = cost_wta_plain(depths, warped, wvalid, gray, left, weights, **kw)
+    for g, w_ in zip(got, want):
+        assert same_values(g, w_)
