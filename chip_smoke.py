@@ -9,9 +9,11 @@ Phases; any failure raises, and the script exits non-zero:
 
 1. require CUDA; print the device and nvidia-smi's name and power limit;
 2. build the five CUDA kernels from csrc/ (one nvcc per source, in
-   parallel); print each kernel's registers, spills and static shared
-   memory from ptxas, kernel 1's dynamic shared memory and kernel 4's
-   resident blocks an SM;
+   parallel; kernels 1 and 4 for window radii 1-7, kernel 2 for radii 1-7
+   in WTA and top-K 1-16 modes); print each kernel instance's registers,
+   spills and static shared memory from ptxas, kernel 1's and kernel 4's
+   dynamic shared memory and kernel 4's resident blocks an SM, per
+   radius;
 3. kernel 1 (geodesic weights) against its plain PyTorch version at
    384x512, radius 2 (the MVS paths) and radius 5 (the two-view paths),
    and on a ragged 61x83 stress image with a holed validity plane, max
@@ -67,10 +69,35 @@ Phases; any failure raises, and the script exits non-zero:
     and on the MVS cross-check's recorded coordinates: values bit-equal,
     the same finite mask, oob_frac == 0; times, and the torch gather it
     replaces;
-16. print the kernel table as one JSON line (kernel 1 has a row for each
+16. every other radius and top-K the kernels are built for: a radius 8
+    (0) or a top_k 17 (0) raises ValueError and launches nothing; kernel 1
+    at radii 1, 3, 4, 6, 7 against its plain version on the main path's
+    image (384x512, timed there) and the stress image, within 2e-5; kernel
+    2 at radii 1-7, WTA and top_k 1, 2, 9, 16, bit-equal on the ragged
+    stress input at that radius (timed there); kernel 4 at radii 1-4, 6, 7,
+    both modes, bit-equal on the structured stress input at that radius
+    (timed there).  No main path runs these instances;
+17. the rig calibration (``cli calibrate``): CameraCalibration with the
+    default CalibrationConfig on tests/golden/example_corners.npz (8
+    cameras at 1024x768, 30 sets, 101 boards of 99 corners), on the card
+    and then the same call on the CPU: the inlier mean error within
+    0.002 px of the JAX package's and the same number of pruned
+    observations (scripts/calib_reference.py);
+18. the refraction calibration (``cli refraction``): the 8-view rig with
+    tilted interfaces, correspondences of every camera pair over 30 poses
+    of an 11x9 board (0.02 px noise), 25 parameters, from a perturbed
+    model; and bench.py's 2-camera problem.  Card and CPU: ok, chi2 down
+    >= 10^3, |n - truth| < 0.02, distances within tolerance;
+19. bench.py's bundle adjustment (8 cameras, 512 points, 4,096
+    observations, 10 iterations), card and CPU: the cost drop within 1e-6
+    of the JAX package's.  Phases 17-19 print their wall seconds, LM
+    iterations and host reads, and each calibration layer's seconds, and
+    launch none of the five kernels (their counts stay 0);
+20. print the kernel table as one JSON line (kernel 1 has a row for each
     radius; each row's launches are summed over the main paths that run
-    it, each read right after its own run), then the result line
-    {"ok": true, "device": {...}} last.
+    it, each read right after its own run; the instances of phase 16 have
+    rows of their own, timed on their gates' inputs, with 0 launches),
+    then the result line {"ok": true, "device": {...}} last.
 
 A kernel's time ("ms") is its device time from torch.profiler, the mean of
 10 launches each after an L2 flush; the event time of the whole wrapper
@@ -233,15 +260,20 @@ def kernel_ms(fn, reps, device, kernel, strict=False):
 
     call = cuda_ms(fn, reps, device)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize(device)
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and kernel in e.key]
-    n = sum(e.count for e in rows)
+    # the profiler now and then records no launch of a kernel in a whole
+    # session (PERF.md section 7): such a session is run again, twice at most
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize(device)
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key]
+        n = sum(e.count for e in rows)
+        if n:
+            break
     if n != reps:
         print(f"  timing: profiled {n} launches of {kernel}, not {reps}"
               + ("; its time is the call's" if n == 0 else ""))
@@ -310,18 +342,18 @@ def sweep_counts(inputs, nbr_valid, radius, every_pixel=False):
             int((lmask & swept[None]).sum()))
 
 
-def sweep_ops(counts):
+def sweep_ops(counts, radius=2):
     """float32 operations of the sweep in the kernel's form: a valid tap of
     an interior window 6 (the weighted right value, its square and cross
     product, three adds), of a border window 11 (also the four left-hand
     sums and the count); a unit ~19 for the NCC from interior sums (right
     mean, the cross and right variance terms, product, sqrt, divide, the
     peak test and the max) and ~27 from border sums (also the left mean and
-    variance); a swept pixel 25 products for its left values and 4 a
+    variance); a swept pixel (2r+1)^2 products for its left values and 4 a
     left-mask tap for its label-independent sums."""
     t_in, t_bd, u_in, u_bd, pixels, lmask_taps = counts
-    return (6 * t_in + 11 * t_bd + 19 * u_in + 27 * u_bd + 25 * pixels
-            + 4 * lmask_taps)
+    return (6 * t_in + 11 * t_bd + 19 * u_in + 27 * u_bd
+            + (2 * radius + 1) ** 2 * pixels + 4 * lmask_taps)
 
 
 # --------------------------------------------------------------------------
@@ -1343,6 +1375,563 @@ def profile_mrf(device, rig):
     print(f"profile:   TRW-S iterations a view {iters} (sum {sum(iters)})")
 
 
+# --------------------------------------------------------------------------
+# Every radius and top-K the kernels are built for (kernels 1, 2 and 4)
+# --------------------------------------------------------------------------
+
+RADII = tuple(range(1, 8))
+SWEEP_TOPKS = (1, 2, 9, 16)
+
+
+def check_unbuilt_refused(device):
+    """A radius or top-K outside the built range raises ValueError on the
+    card (and never falls back to the plain version)."""
+    from stereoreconstruction_tpu_torch.ops.cuda_cost_wta import (
+        cuda_cost_volume, cuda_cost_wta)
+    from stereoreconstruction_tpu_torch.ops.cuda_mvs import (
+        cuda_mvs_topk, cuda_mvs_wta)
+    from stereoreconstruction_tpu_torch.ops.cuda_weights import (
+        cuda_geodesic_weights)
+
+    s_in, s_nv, s_thr = sweep_stress_inputs(device, 2)
+    no_c = {k: v for k, v in s_in.items() if k != "center_valid"}
+    c_in = cost_stress_inputs(device, 2)
+    rgb, _ = weights_stress_inputs(device)
+    calls = {
+        "weights r=8": lambda: cuda_geodesic_weights(rgb, 8),
+        "weights r=0": lambda: cuda_geodesic_weights(rgb, 0),
+        "sweep WTA r=8": lambda: cuda_mvs_wta(nbr_valid=s_nv, radius=8,
+                                              thr=s_thr, **s_in),
+        "sweep top-K r=8": lambda: cuda_mvs_topk(
+            nbr_valid=s_nv, radius=8, thr=s_thr, top_k=9, **no_c),
+        "sweep top_k=17": lambda: cuda_mvs_topk(
+            nbr_valid=s_nv, radius=2, thr=s_thr, top_k=17, **no_c),
+        "sweep top_k=0": lambda: cuda_mvs_topk(
+            nbr_valid=s_nv, radius=2, thr=s_thr, top_k=0, **no_c),
+        "cost WTA r=8": lambda: cuda_cost_wta(*c_in, radius=8),
+        "cost volume r=8": lambda: cuda_cost_volume(*c_in[1:], radius=8),
+    }
+    counters = kernel_counters()
+    for name, call in calls.items():
+        before = {k: f.launches for k, f in counters.items()}
+        try:
+            call()
+        except ValueError as e:
+            print(f"refused {name}: {e}")
+        else:
+            raise AssertionError(f"{name} did not raise ValueError")
+        if {k: f.launches for k, f in counters.items()} != before:
+            raise AssertionError(f"{name} launched a kernel")
+
+
+def instance_row(name, counter, source, replaces, err, ms, plain_ms,
+                 n_bytes, n_ops, instance):
+    """A kernel-table row of an instance that no main path runs: timed on
+    its gate's inputs, 0 launches on the main paths."""
+    bound_ms, by = bound(n_bytes, n_ops)
+    print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({by})")
+    return dict(name=name, counter=counter, route="cuda",
+                source=f"stereoreconstruction_tpu_torch/csrc/{source}",
+                replaces=f"stereoreconstruction_tpu/ops/{replaces}",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=None, paths=(),
+                instance=instance)
+
+
+def check_weights_radii(device, rgb, reps):
+    """Kernel 1 at every built radius but the main paths' (2, 5), against
+    its plain version on the main path's image (384x512, where each is
+    timed) and the stress image: max |diff| <= 2e-5.  Returns their rows."""
+    from stereoreconstruction_tpu_torch.ops.cuda_weights import (
+        cuda_geodesic_weights)
+    from stereoreconstruction_tpu_torch.ops.weights import geodesic_weights
+
+    from stereoreconstruction_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.library("geodesic_weights")
+    s_rgb, s_valid = weights_stress_inputs(device)
+    h, w = rgb.shape[:2]
+    rows = []
+    for r in RADII:
+        if r in (2, 5):
+            continue
+        err = float((cuda_geodesic_weights(rgb, r)
+                     - geodesic_weights(rgb, r, exact=False)).abs().max())
+        s_err = float((cuda_geodesic_weights(s_rgb, r, valid=s_valid)
+                       - geodesic_weights(s_rgb, r, exact=False,
+                                          pixel_valid=s_valid)).abs().max())
+        print(f"weights r={r}: max |kernel - plain| {h}x{w} {err:.3e}, "
+              f"stress {s_err:.3e}; {lib.geodesic_weights_smem_bytes(r)} B "
+              f"dynamic smem a block")
+        if not (err <= 2e-5 and s_err <= 2e-5):
+            raise AssertionError(f"geodesic weights r={r} disagree")
+        ms, _ = kernel_ms(lambda: cuda_geodesic_weights(rgb, r), reps,
+                          device, f"geodesic_weights_kernel<{r}>",
+                          strict=True)
+        plain_ms = cuda_ms(lambda: geodesic_weights(rgb, r, exact=False), 3,
+                           device)
+        size = 2 * r + 1
+        rows.append(instance_row(
+            f"geodesic_weights_r{r}", "geodesic_weights",
+            "geodesic_weights.cu", "pallas_weights.py:166",
+            max(err, s_err), ms, plain_ms,
+            rgb.numel() * 4 + size * size * h * w * 4,
+            geodesic_ops(r) * h * w, f"r={r}, {h}x{w}"))
+    return rows
+
+
+def check_sweep_radii(device, reps):
+    """Kernel 2 at every built radius, WTA and top_k 1, 2, 9 and 16 (the
+    main paths' r = 2 WTA and K = 9 are phase 4's), bit-equal to its plain
+    versions on the ragged stress input at that radius, where each is
+    timed.  Returns their rows."""
+    from stereoreconstruction_tpu_torch.ops.cuda_mvs import (
+        cuda_mvs_topk, cuda_mvs_wta, mvs_topk_plain, mvs_wta_plain)
+
+    rows = []
+    for r in RADII:
+        s_in, s_nv, s_thr = sweep_stress_inputs(device, r)
+        no_c = {k: v for k, v in s_in.items() if k != "center_valid"}
+        kw = dict(nbr_valid=s_nv, radius=r, thr=s_thr)
+        modes = [("wta", None)] + [("topk", k) for k in SWEEP_TOPKS]
+        for mode, k in modes:
+            if r == 2 and (mode == "wta" or k == 9):
+                continue
+            if mode == "wta":
+                def call():
+                    return cuda_mvs_wta(**kw, **s_in)
+                want = mvs_wta_plain(**kw, **s_in)
+                kname, inst = f"mvs_sweep_kernel<{r}, 1>", f"r={r}, WTA"
+            else:
+                def call(k=k):
+                    return cuda_mvs_topk(top_k=k, **kw, **no_c)
+                want = mvs_topk_plain(top_k=k, **kw, **no_c)
+                kname = f"mvs_sweep_kernel<{r}, 0>"
+                inst = f"r={r}, top_k={k}"
+            n_k, d_k, oob = call()
+            exact = bool(torch.equal(n_k, want[0])
+                         and torch.equal(d_k, want[1]))
+            print(f"sweep {inst} stress {tuple(d_k.shape)}: bit-equal "
+                  f"{exact} ({int(torch.isfinite(n_k).sum())} finite), "
+                  f"oob_frac {float(oob)}")
+            if not (exact and float(oob) == 0.0):
+                raise AssertionError(f"sweep {inst} disagrees with its plain "
+                                     "version")
+            ms, _ = kernel_ms(lambda: call()[:2], reps, device, kname,
+                              strict=True)
+            plain = (lambda: mvs_wta_plain(**kw, **s_in)) if mode == "wta" \
+                else (lambda k=k: mvs_topk_plain(top_k=k, **kw, **no_c))
+            plain_ms = cuda_ms(plain, 3, device)
+            counts = sweep_counts(s_in, s_nv, r, every_pixel=mode == "topk")
+            n_bytes = sum(t.numel() * t.element_size() for t in s_in.values()
+                          if isinstance(t, torch.Tensor)) + s_nv.numel() \
+                + 2 * d_k.numel() * 4
+            rows.append(instance_row(
+                f"mvs_sweep_r{r}_" + ("wta" if mode == "wta" else f"top{k}"),
+                "mvs_sweep" if mode == "wta" else "mvs_sweep_topk",
+                "mvs_sweep.cu", "pallas_mvs.py:306", 0.0, ms, plain_ms,
+                n_bytes, sweep_ops(counts, r), inst + ", stress 61x83"))
+    return rows
+
+
+def check_cost_radii(device, reps):
+    """Kernel 4 at every built radius but the two-view paths' 5, both
+    modes, bit-equal to its plain versions on the structured stress input
+    at that radius, where each is timed; prints each radius's dynamic
+    shared memory and blocks an SM.  Returns their rows."""
+    from stereoreconstruction_tpu_torch.config import TwoViewConfig
+    from stereoreconstruction_tpu_torch.ops.cuda_cost_wta import (
+        cost_volume_plain, cost_wta_plain, cuda_cost_volume, cuda_cost_wta)
+
+    from stereoreconstruction_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.library("cost_wta")
+    rows = []
+    for r in RADII:
+        print(f"cost r={r}: {lib.cost_wta_smem_bytes(r)} B dynamic smem a "
+              f"block; blocks an SM: WTA {lib.cost_wta_blocks_per_sm(0, r)},"
+              f" volume {lib.cost_wta_blocks_per_sm(1, r)}")
+        if r == 5:
+            continue
+        cfg = TwoViewConfig(window_radius=r)
+        args = cost_stress_inputs(device, r)
+        kw = dict(radius=r, max_color_diff=cfg.max_color_diff,
+                  bad_ret=cfg.bad_ret)
+        check_cost_inputs(cfg, f"cost r={r}", cuda_cost_wta, cost_wta_plain,
+                          [("stress", args)])
+        check_cost_inputs(cfg, f"cost volume r={r}", cuda_cost_volume,
+                          cost_volume_plain, [("stress", args[1:])])
+        counts = cost_counts(args[4], args[5], args[2], r)
+        in_bytes = sum(t.numel() * t.element_size() for t in args)
+        for volume in (False, True):
+            if volume:
+                def call():
+                    return cuda_cost_volume(*args[1:], **kw)
+
+                def plain():
+                    return cost_volume_plain(*args[1:], **kw)
+                out_bytes = args[1].numel() * 4
+            else:
+                def call():
+                    return cuda_cost_wta(*args, **kw)
+
+                def plain():
+                    return cost_wta_plain(*args, **kw)
+                out_bytes = 3 * args[3].numel() * 4
+            ms, _ = kernel_ms(call, reps, device,
+                              f"cost_wta_kernel<{r}, "
+                              f"{'true' if volume else 'false'}>",
+                              strict=True)
+            rows.append(instance_row(
+                f"cost_{'volume' if volume else 'wta'}_r{r}",
+                "cost_volume" if volume else "cost_wta", "cost_wta.cu",
+                "pallas_ncc.py:158", 0.0, ms, cuda_ms(plain, 3, device),
+                in_bytes + out_bytes, cost_ops(counts, 30),
+                f"r={r}, {'volume' if volume else 'WTA'}, stress 61x83"))
+    return rows
+
+
+# --------------------------------------------------------------------------
+# Calibration: the cli calibrate / cli refraction slice (float64)
+# --------------------------------------------------------------------------
+
+# The JAX package's results on the same inputs, re-measured on its CPU
+# backend at commit 2fc76a3 by scripts/calib_reference.py (float64):
+# CameraCalibration with the default CalibrationConfig on
+# tests/golden/example_corners.npz (8 cameras, 30 sets, 101 boards), the
+# 12-set reduced budget (num_iterations=1, min_subset=8), and bench.py's
+# 8-camera bundle adjustment (numpy seed 1, 10 iterations).
+JAX_RIG_FULL = dict(error=0.3956861357534081, pruned=40,
+                    error_all=11.633704971071456)
+JAX_RIG_REDUCED = dict(error=0.4979103897381178, pruned=17,
+                       error_all=14.5386470958479)
+JAX_BA_COST_DROP = 872.7344454972149
+RIG_TOL_PX = 0.002          # inlier mean error, against the JAX package's
+BA_DROP_RTOL = 1e-6         # the cost drop, against the JAX package's
+CORNERS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "golden", "example_corners.npz")
+
+
+def example_corners(reduced):
+    """image_points[cam][set] and sizes of the example project's detected
+    corners; ``reduced``: the first 12 sets that 2 cameras see."""
+    data = np.load(CORNERS, allow_pickle=True)
+    cam_ids = sorted(str(r[0]) for r in data["__sizes__"])
+    set_ids = sorted({k.split("|")[0] for k in data.files if "|" in k})
+    sizes = {str(r[0]): (int(r[1]), int(r[2])) for r in data["__sizes__"]}
+    pts = [[data[f"{s}|{c}"] if f"{s}|{c}" in data.files else None
+            for s in set_ids] for c in cam_ids]
+    if reduced:
+        keep = [s for s in range(len(set_ids))
+                if sum(p[s] is not None for p in pts) >= 2][:12]
+        pts = [[p[s] for s in keep] for p in pts]
+    return pts, [sizes[c] for c in cam_ids]
+
+
+def calib_run(device, call):
+    """``call(device)`` timed on the host clock (ending in a synchronise on
+    CUDA) with the tracer reset before it; returns (result, seconds, the
+    tracer's report).  The kernels' counts are set to 0 just before and
+    read just after: the calibration path launches none of them."""
+    from stereoreconstruction_tpu_torch.runtime import trace as tracing
+
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    tracing.reset()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = call(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launched = {k: f.launches for k, f in counters.items() if f.launches}
+    if launched:
+        raise AssertionError(f"the calibration path launched {launched}")
+    return out, wall, tracing.report()
+
+
+def calib_layers(rep):
+    """One line of a run's tracer report: LM calls, iterations and host
+    reads, and the seconds of each calibration layer (model evaluation:
+    residuals, Jacobian and reductions; the host solve; board errors; the
+    Schur blocks and solve)."""
+    c, st = rep["counters"], rep["stages"]
+
+    def sec(suffix):
+        return sum(v["total_s"] for k, v in st.items()
+                   if k.endswith(suffix))
+    return (f"LM calls {c.get('lm/calls', 0)}, iterations "
+            f"{c.get('lm/iterations', 0)}, host reads "
+            f"{c.get('lm/host_reads', 0)}; board-error reads "
+            f"{c.get('calibrate/board_error_reads', 0)}; BA iterations "
+            f"{c.get('bundle/iterations', 0)}, host reads "
+            f"{c.get('bundle/host_reads', 0)}; seconds: LM evaluate "
+            f"{sec('lm/evaluate'):.3f}, LM solve {sec('lm/solve'):.3f}, "
+            f"board errors {sec('calibrate/board_errors'):.3f}, Schur blocks "
+            f"{sec('bundle/blocks'):.3f}, Schur solve "
+            f"{sec('bundle/solve'):.3f}")
+
+
+def calib_compare(title, device, call):
+    """``call`` on the card and then on the CPU: prints both times and
+    tracer lines; returns (card result, card s, CPU result, CPU s)."""
+    cpu = torch.device("cpu")
+    got, wall, rep = calib_run(device, call)
+    print(f"{title}: card {wall:.3f} s; {calib_layers(rep)}")
+    got_cpu, wall_cpu, rep_cpu = calib_run(cpu, call)
+    print(f"{title}: CPU {wall_cpu:.3f} s ({torch.get_num_threads()} "
+          f"threads); {calib_layers(rep_cpu)}")
+    return got, wall, got_cpu, wall_cpu
+
+
+def calib_rig_phase(device, reduced):
+    """CameraCalibration with the default CalibrationConfig on the example
+    project's corners, on the card and on the CPU: the inlier mean error
+    within RIG_TOL_PX of the JAX package's and the same number of pruned
+    observations, on both."""
+    from stereoreconstruction_tpu_torch.calib.rig import CameraCalibration
+    from stereoreconstruction_tpu_torch.config import CalibrationConfig
+
+    pts, sizes = example_corners(reduced)
+    cfg = CalibrationConfig(num_iterations=1, min_subset=8) if reduced \
+        else CalibrationConfig()
+    want = JAX_RIG_REDUCED if reduced else JAX_RIG_FULL
+    title = "rig calibration " + ("12-set reduced" if reduced else
+                                  "full") + (f" ({len(pts)} cameras, "
+                                             f"{len(pts[0])} sets)")
+    got, wall, got_cpu, wall_cpu = calib_compare(
+        title, device,
+        lambda dev: CameraCalibration(pts, sizes, cfg, device=dev).calibrate())
+    for where, res in (("card", got), ("CPU", got_cpu)):
+        print(f"{title} {where}: inlier mean {res.error:.10f} px (JAX "
+              f"{want['error']:.10f}), {len(res.outlier_observations)} "
+              f"pruned (JAX {want['pruned']}), all boards "
+              f"{res.error_all:.6f} px (JAX {want['error_all']:.6f})")
+        if not (abs(res.error - want["error"]) <= RIG_TOL_PX
+                and len(res.outlier_observations) == want["pruned"]):
+            raise AssertionError(f"{title} on the {where} is off the JAX "
+                                 "package's result")
+    return dict(seconds=wall, cpu_seconds=wall_cpu, error=got.error)
+
+
+def refract_project(K, R, t, normal, plane_dist, n, X):
+    """World points [N, 3] -> pixels [N, 2] through a flat refractive port
+    (numpy float64, the reference's projectRefraction: the quartic's real
+    root in [0, r] by np.roots), independent of the port's bisection."""
+    p = X @ R.T + t
+    axial = p @ normal
+    radial = p - axial[:, None] * normal
+    r = np.linalg.norm(radial, axis=1)
+    z = np.abs(axial)
+    nn, dd = n * n, plane_dist * plane_dist
+    out = np.empty((len(X), 2))
+    for i in range(len(X)):
+        coeffs = [nn - 1.0, -2.0 * r[i] * (nn - 1.0),
+                  r[i] ** 2 * (nn - 1.0) + dd * nn - (z[i] - plane_dist) ** 2,
+                  -2.0 * dd * nn * r[i], dd * nn * r[i] ** 2]
+        roots = np.roots(coeffs)
+        real = roots[np.abs(roots.imag) < 1e-9].real
+        ri = real[(real >= -1e-9) & (real <= r[i] + 1e-9)].min()
+        q = ri * radial[i] / max(r[i], 1e-12) + plane_dist * normal
+        uv = K @ q
+        out[i] = uv[:2] / uv[2]
+    return out
+
+
+def refraction_problem(n_poses=30, seed=0, noise=0.02):
+    """The 8-view refractive rig of the main path (full-resolution K,
+    1024x768) with tilted interfaces, and the correspondences of every
+    camera pair over ``n_poses`` poses of an 11x9-corner board (cell 3)
+    near the rig's target: (cameras, p1, p2, vi1, vi2, truth model)."""
+    rng = np.random.default_rng(seed)
+    cams = converging_rig(N_VIEWS, focal=FOCAL, h=FULL_H, w=FULL_W,
+                          baseline=BASELINE, target_z=TARGET_Z,
+                          refr_index=REFR_INDEX, plane_dist=PORT_DIST)
+    truth = [REFR_INDEX]
+    for i, c in enumerate(cams):
+        K = c["K"]
+        px = K[0, 2] + 15.0 * (i - 3.5) / 3.5
+        py = K[1, 2] + 8.0 * np.cos(i)
+        nrm = np.linalg.solve(K, [px, py, 1.0])
+        c["normal"] = nrm / np.linalg.norm(nrm)
+        c["plane_dist"] = PORT_DIST + 0.1 * (i % 3)
+        truth += [px, py, c["plane_dist"]]
+    grid = np.stack(np.meshgrid(np.arange(11), np.arange(9)), -1).reshape(
+        -1, 2) * 3.0 - [15.0, 12.0]
+    board = np.concatenate([grid, np.zeros((len(grid), 1))], axis=1)
+    p1s, p2s, v1s, v2s = [], [], [], []
+    for _ in range(n_poses):
+        w = rng.normal(0.0, 0.25, 3)
+        th = np.linalg.norm(w)
+        k = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+        Rb = np.eye(3) + np.sin(th) / th * k + (1 - np.cos(th)) / th ** 2 \
+            * k @ k
+        X = board @ Rb.T + [rng.uniform(-8, 8), rng.uniform(-6, 6),
+                            rng.uniform(TARGET_Z - 5, TARGET_Z + 10)]
+        uv, seen = [], []
+        for c in cams:
+            q = refract_project(c["K"], c["R"], c["t"], c["normal"],
+                                c["plane_dist"], c["refr_index"], X)
+            seen.append(np.all((q > 0) & (q < [FULL_W, FULL_H]), axis=1))
+            uv.append(q + rng.normal(0.0, noise, q.shape))
+        for a in range(N_VIEWS):
+            for b in range(a + 1, N_VIEWS):
+                both = seen[a] & seen[b]
+                p1s.append(uv[a][both])
+                p2s.append(uv[b][both])
+                v1s.append(np.full(both.sum(), a))
+                v2s.append(np.full(both.sum(), b))
+    return (cams, np.concatenate(p1s), np.concatenate(p2s),
+            np.concatenate(v1s), np.concatenate(v2s), np.array(truth))
+
+
+def bench_refractive_rig(rng, n_index=1.333):
+    """bench.py's 2-camera refraction problem: a copy of
+    tests/test_refraction.py's make_refractive_rig with the port's camera
+    model (two refractive cameras with known interfaces, correspondences
+    of 60 projected points)."""
+    from stereoreconstruction_tpu_torch.geometry.camera import (make_camera,
+                                                                project)
+    K = np.array([[800.0, 0, 320.0], [0, 800.0, 240.0], [0, 0, 1]])
+    th = 0.15
+    R2 = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0],
+                   [-np.sin(th), 0, np.cos(th)]])
+    t2 = np.array([-40.0, 0.0, 6.0])
+    px1, py1, d1 = 324.0, 244.0, 8.0
+    px2, py2, d2 = 317.0, 235.0, 9.5
+
+    def plane_normal(px, py):
+        v = np.linalg.solve(K, np.array([px, py, 1.0]))
+        return v / np.linalg.norm(v)
+
+    cam1 = make_camera(K, np.eye(3), np.zeros(3),
+                       plane_normal=plane_normal(px1, py1), plane_dist=d1,
+                       refr_index=n_index)
+    cam2 = make_camera(K, R2, t2, plane_normal=plane_normal(px2, py2),
+                       plane_dist=d2, refr_index=n_index)
+    X = torch.as_tensor(rng.uniform([-80, -60, 350], [80, 60, 650],
+                                    size=(60, 3)))
+    xy1, v1 = (a.numpy() for a in project(cam1, X))
+    xy2, v2 = (a.numpy() for a in project(cam2, X))
+    good = (v1 & v2 & np.all(np.abs(xy1 - [320, 240]) < [310, 230], -1)
+            & np.all(np.abs(xy2 - [320, 240]) < [310, 230], -1))
+    p1, p2 = xy1[good], xy2[good]
+    return ([cam1, cam2], p1, p2, np.zeros(len(p1), np.int32),
+            np.ones(len(p1), np.int32),
+            np.array([n_index, px1, py1, d1, px2, py2, d2]))
+
+
+def check_refraction(title, res, truth, dist_tol):
+    print(f"{title}: ok {res.ok}, chi2 {res.chi2_before:.6g} -> "
+          f"{res.chi2_after:.6g} (drop {res.chi2_before / res.chi2_after:.4g})"
+          f", {res.iterations} iterations, {res.host_reads} host reads, n "
+          f"{res.refractive_index:.6f} (truth {truth[0]}), distances "
+          f"{np.round(res.model[3::3], 5).tolist()} (truth "
+          f"{truth[3::3].tolist()})")
+    d_err = np.abs(res.model[3::3] - truth[3::3]).max()
+    if not (res.ok and res.chi2_after <= res.chi2_before * 1e-3
+            and abs(res.refractive_index - truth[0]) < 0.02
+            and d_err < dist_tol):
+        raise AssertionError(f"{title} missed the truth (distance error "
+                             f"{d_err})")
+
+
+def calib_refraction_phase(device):
+    """The refraction calibration (LM on the ray-ray mismatch) on the card
+    and the CPU: the 8-view rig from a perturbed model (n 1.30, normals at
+    the principal point, distances 1.5), and bench.py's 2-camera problem
+    from its perturbed model.  Gates: ok, chi2 down >= 10^3, |n - truth| <
+    0.02, every distance within 0.1 (8 views: 5% of 2.0) / 0.5 (2
+    cameras, as the JAX package's test)."""
+    from stereoreconstruction_tpu_torch.calib.refraction import calibrate
+    from stereoreconstruction_tpu_torch.config import RefractionConfig
+    from stereoreconstruction_tpu_torch.geometry.camera import make_camera
+
+    t0 = time.perf_counter()
+    cams_np, p1, p2, vi1, vi2, truth = refraction_problem()
+    cams = [make_camera(c["K"], c["R"], c["t"]) for c in cams_np]
+    model0 = truth.copy()
+    model0[0] = 1.30
+    for v, c in enumerate(cams_np):
+        model0[3 * v + 1:3 * v + 4] = [c["K"][0, 2], c["K"][1, 2], 1.5]
+    print(f"refraction problem: {len(p1)} correspondences over "
+          f"{N_VIEWS * (N_VIEWS - 1) // 2} camera pairs, {len(model0)} "
+          f"parameters, made in {time.perf_counter() - t0:.1f} s")
+    cfg = RefractionConfig(epsilon=1e-8)
+    out = {}
+    got, wall, got_cpu, wall_cpu = calib_compare(
+        "refraction 8 views", device,
+        lambda dev: calibrate(cams, p1, p2, vi1, vi2, model0=model0,
+                              cfg=cfg, device=dev))
+    for where, res in (("card", got), ("CPU", got_cpu)):
+        check_refraction(f"refraction 8 views {where}", res, truth, 0.1)
+    out["refraction_8"] = dict(seconds=wall, cpu_seconds=wall_cpu,
+                               correspondences=len(p1))
+
+    rcams, q1, q2, w1, w2, rtruth = bench_refractive_rig(
+        np.random.default_rng(0))
+    m0 = rtruth.copy()
+    m0[0] = 1.30
+    m0[1:] = [320.0, 240.0, 6.0, 320.0, 240.0, 7.0]
+    got, wall, got_cpu, wall_cpu = calib_compare(
+        "refraction 2 cameras (bench.py)", device,
+        lambda dev: calibrate(rcams, q1, q2, w1, w2, model0=m0, cfg=cfg,
+                              device=dev))
+    for where, res in (("card", got), ("CPU", got_cpu)):
+        check_refraction(f"refraction 2 cameras {where}", res, rtruth, 0.5)
+    out["refraction_2"] = dict(seconds=wall, cpu_seconds=wall_cpu)
+    return out
+
+
+def ba_problem():
+    """bench.py's bundle-adjustment problem (numpy seed 1): 8 cameras, 512
+    points, 4,096 observations with 0.3 px noise, perturbed poses and
+    points.  The measurements are projected by the port's ``_project_obs``
+    in float64 on the CPU."""
+    from stereoreconstruction_tpu_torch.calib.bundle import _project_obs
+
+    rng = np.random.default_rng(1)
+    n_cams, n_pts, n_obs = 8, 512, 4096
+    Ks = np.stack([np.array([[800.0, 0, 320], [0, 800.0, 240],
+                             [0, 0, 1]])] * n_cams)
+    poses = rng.normal(0, 0.03, (n_cams, 6))
+    points = rng.uniform([-80, -60, 350], [80, 60, 650], (n_pts, 3))
+    cam_idx = rng.integers(0, n_cams, n_obs)
+    pt_idx = rng.integers(0, n_pts, n_obs)
+    meas = torch.func.vmap(_project_obs)(
+        torch.as_tensor(poses[cam_idx]), torch.as_tensor(points[pt_idx]),
+        torch.as_tensor(Ks[cam_idx])).numpy()
+    meas = meas + rng.normal(0, 0.3, meas.shape)
+    poses0 = poses + rng.normal(0, 0.01, poses.shape)
+    points0 = points + rng.normal(0, 2.0, points.shape)
+    return Ks, poses0, points0, cam_idx, pt_idx, meas
+
+
+def calib_ba_phase(device):
+    """The Schur-complement bundle adjustment at bench.py's size, 10
+    iterations, on the card and the CPU: the cost drop within BA_DROP_RTOL
+    of the JAX package's."""
+    from stereoreconstruction_tpu_torch.calib.bundle import bundle_adjust
+
+    prob = ba_problem()
+    got, wall, got_cpu, wall_cpu = calib_compare(
+        "bundle adjustment (8 cameras, 512 points, 4096 observations)",
+        device, lambda dev: bundle_adjust(*prob, max_iterations=10,
+                                          device=dev))
+    for where, (_, _, hist) in (("card", got), ("CPU", got_cpu)):
+        drop = hist[0] / hist[-1]
+        print(f"bundle adjustment {where}: cost {hist[0]:.6f} -> "
+              f"{hist[-1]:.6f}, drop {drop:.10g} (JAX "
+              f"{JAX_BA_COST_DROP:.10g}), {len(hist) - 1} accepted steps")
+        if not abs(drop / JAX_BA_COST_DROP - 1.0) <= BA_DROP_RTOL:
+            raise AssertionError(f"bundle adjustment on the {where}: cost "
+                                 f"drop {drop} is off the JAX package's")
+    return dict(seconds=wall, cpu_seconds=wall_cpu)
+
+
 def kernel_name(mangled):
     """The innermost name of a mangled nested kernel name, with its integer
     template arguments: '_ZN12_GLOBAL__N_116mvs_sweep_kernelILi2ELi9EEEv...'
@@ -1362,17 +1951,21 @@ def kernel_name(mangled):
 
 def ptxas_summary(log):
     """Each kernel's resources from an ``nvcc -Xptxas -v`` log: a dict of
-    its name, registers, spill store and load bytes and static shared
-    memory bytes."""
+    its name, registers, spill store and load bytes, stack frame (local
+    memory) bytes and static shared memory bytes."""
     rows = []
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             rows.append(dict(kernel=kernel_name(m[1]), registers=None,
-                             spill_stores=0, spill_loads=0, smem=0))
+                             spill_stores=0, spill_loads=0, stack=0,
+                             smem=0))
             continue
         if not rows:
             continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            rows[-1]["stack"] = int(m[1])
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -1416,14 +2009,17 @@ def main():
         for k in ptxas_summary(log):
             print(f"  ptxas {src}: {k['kernel']}: {k['registers']} "
                   f"registers, {k['spill_stores']} B spill stores, "
-                  f"{k['spill_loads']} B spill loads, {k['smem']} B static "
-                  f"smem")
+                  f"{k['spill_loads']} B spill loads, {k['stack']} B stack "
+                  f"frame, {k['smem']} B static smem")
     smem = cuda_build.library("geodesic_weights").geodesic_weights_smem_bytes
     print("  geodesic_weights dynamic smem a block: "
-          + ", ".join(f"r={r} {smem(r)} B" for r in (2, 5)))
-    blocks = cuda_build.library("cost_wta").cost_wta_blocks_per_sm
-    print(f"  cost_wta blocks an SM (runtime occupancy): WTA {blocks(0)}, "
-          f"volume {blocks(1)}")
+          + ", ".join(f"r={r} {smem(r)} B" for r in RADII))
+    lib = cuda_build.library("cost_wta")
+    print("  cost_wta dynamic smem a block and blocks an SM (runtime "
+          "occupancy, WTA/volume): " + ", ".join(
+              f"r={r} {lib.cost_wta_smem_bytes(r)} B "
+              f"{lib.cost_wta_blocks_per_sm(0, r)}/"
+              f"{lib.cost_wta_blocks_per_sm(1, r)}" for r in RADII))
 
     t0 = time.perf_counter()
     cams_np = converging_rig(N_VIEWS, focal=FOCAL, h=FULL_H, w=FULL_W,
@@ -1477,6 +2073,22 @@ def main():
     profile_twoview(device, rig2, use_mrf=True)
     rows.append(check_sampler(device, sampled, reps=10, plain_reps=3))
 
+    t0 = time.perf_counter()
+    check_unbuilt_refused(device)
+    rows += check_weights_radii(device, torch.as_tensor(rig[2][0],
+                                                        device=device), 10)
+    rows += check_sweep_radii(device, 10)
+    rows += check_cost_radii(device, 10)
+    print(f"instances gated in {time.perf_counter() - t0:.1f} s")
+    del rig, rig2
+
+    t0 = time.perf_counter()
+    calib = {"rig": calib_rig_phase(device, reduced=False)}
+    calib.update(calib_refraction_phase(device))
+    calib["bundle"] = calib_ba_phase(device)
+    print(f"calibration phases in {time.perf_counter() - t0:.1f} s: "
+          + json.dumps(calib))
+
     # a row's launches: its counter's count over the main paths that run
     # it, each read right after its own run (kernel 1 has a row for each
     # radius, and each path runs it at its config's one radius)
@@ -1485,8 +2097,9 @@ def main():
                               for p in row["paths"])
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+            "library_ms", "instance")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                  for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

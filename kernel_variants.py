@@ -3,7 +3,8 @@
 
 Run from the repository root:
 
-    python3 kernel_variants.py [--baseline DIR]
+    python3 kernel_variants.py [--baseline DIR] [--kernels K ...]
+        [--variants NAME ...]
 
 Kernels 1 (``csrc/geodesic_weights.cu``), 2 (``csrc/mvs_sweep.cu``) and 4
 (``csrc/cost_wta.cu``), or those named with ``--kernels``.  Each variant
@@ -44,6 +45,7 @@ CSRC = Path(__file__).resolve().parent / "stereoreconstruction_tpu_torch" \
 
 LB = "__launch_bounds__(kBlockX * kBlockY, 4)\nmvs"
 ARRAY = "const float (&wl)[(2 * R + 1) * (2 * R + 1)]"
+SWEEP_RADII = "#define SWEEP_RADII(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7)"
 # (name, substitutions, timing_only)
 SWEEP_VARIANTS = [
     ("shipped", [], False),
@@ -57,7 +59,9 @@ SWEEP_VARIANTS = [
        "float w[T];\n  __shared__ float wl_sh[T * kBlockX * kBlockY];\n"
        "  float* wl = wl_sh + threadIdx.y * kBlockX + threadIdx.x;"),
       (ARRAY, "const float* __restrict__ wl"),
-      ("wl[k]", "wl[k * kBlockX * kBlockY]")], False),
+      ("wl[k]", "wl[k * kBlockX * kBlockY]"),
+      # the static shared array fits 48 KB up to r = 4: build r = 2 only
+      (SWEEP_RADII, "#define SWEEP_RADII(X) X(2)")], False),
     ("block 128 x 1",
      [("kBlockX = 32;", "kBlockX = 128;"), ("kBlockY = 4;", "kBlockY = 1;")],
      False),
@@ -85,6 +89,14 @@ SWEEP_VARIANTS = [
      [("w[k] * __ldg(row + c);", "w[k] * (float)(r * 7 + c);")], True),
 ]
 WEIGHTS_VARIANTS = [("shipped", [], False)]
+# Substitutions that let a baseline tree's source take the current
+# wrappers' arguments: a sweep from before the WTA flag gets it as an
+# ignored parameter (its n_topk of 1 is the WTA, as the flag says).
+BASELINE_ABI = {"mvs_sweep": [(
+    "int n_topk, float thr, cudaStream_t stream) {\n"
+    "  if (radius != 2 || N > 32)",
+    "int wta, int n_topk, float thr, cudaStream_t stream) {\n"
+    "  if (radius != 2 || N > 32)")]}
 COST_LB = "__launch_bounds__(kThreads, 3)"
 COST_L = "constexpr int kL = 4;"
 COST_DB = "constexpr bool kDoubleBuffer = false;"
@@ -190,7 +202,12 @@ def variant_sources(kernel, variants, baseline, tmp):
         path.write_text(src)
         out.append((name, path, timing_only))
     if baseline is not None:
-        out.append((f"baseline {baseline}", baseline / f"{kernel}.cu", False))
+        src = (baseline / f"{kernel}.cu").read_text()
+        for old, new in BASELINE_ABI.get(kernel, []):
+            src = src.replace(old, new)
+        path = tmp / f"{kernel}_baseline.cu"
+        path.write_text(src)
+        out.append((f"baseline {baseline}", path, False))
     return out
 
 
@@ -334,6 +351,9 @@ def main():
     parser.add_argument("--kernels", nargs="+", choices=list(VARIANTS),
                         default=list(VARIANTS),
                         help="the kernels whose variants to time")
+    parser.add_argument("--variants", nargs="+", default=None,
+                        help="only the variants of these names (default: "
+                             "all; the baseline is kept)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: CUDA is not available")
@@ -346,8 +366,10 @@ def main():
     baseline = args.baseline.resolve() if args.baseline else None
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        kinds = {k: variant_sources(k, VARIANTS[k], baseline, tmp)
-                 for k in args.kernels}
+        kinds = {k: variant_sources(
+            k, [v for v in VARIANTS[k]
+                if args.variants is None or v[0] in args.variants],
+            baseline, tmp) for k in args.kernels}
         t0 = time.perf_counter()
         libs = build([p for v in kinds.values() for _, p, _ in v], tmp)
         print(f"built {len(libs)} variants in "
@@ -383,7 +405,7 @@ def main():
                     row["bit_equal"], extra = check()
                     row.update(extra)
                 if hasattr(lib, "cost_wta_blocks_per_sm"):
-                    row["blocks_per_sm"] = [lib.cost_wta_blocks_per_sm(v)
+                    row["blocks_per_sm"] = [lib.cost_wta_blocks_per_sm(v, 5)
                                             for v in (0, 1)]
                 row["ms"] = times()
                 ok = timing_only or row["bit_equal"]

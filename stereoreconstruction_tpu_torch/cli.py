@@ -1,15 +1,23 @@
-"""Headless CLI of the PyTorch port: the ``info`` verb and the ``stereo``
-verb of the README workflow (project XML -> depth maps -> PLY).
+"""Headless CLI of the PyTorch port: the ``info``, ``calibrate``,
+``refraction`` and ``stereo`` verbs of the README workflow (project XML
+with board features -> rig calibration -> refractive interfaces -> depth
+maps -> PLY).
 
 Usage:
   python -m stereoreconstruction_tpu_torch.cli info   project.xml
+  python -m stereoreconstruction_tpu_torch.cli calibrate project.xml \
+      --rows 10 --cols 12 --cell-size 11 -o calibrated.xml
+  python -m stereoreconstruction_tpu_torch.cli refraction calibrated.xml \
+      -o refracted.xml
   python -m stereoreconstruction_tpu_torch.cli stereo project.xml \
       --image-set bunny --min-depth 30 --max-depth 80 --cross-check 0.5 -o out/
   python -m stereoreconstruction_tpu_torch.cli stereo project.xml \
       --image-set bunny --min-depth 30 --max-depth 80 --two-view \
       --save-npz out/depths.npz -o out/
 
-``stereo`` runs on CUDA unless ``--device`` names another device.  The
+Every verb but ``info`` runs on CUDA unless ``--device`` names another
+device (``--device cpu``).  ``calibrate`` and ``refraction`` write the
+calibrated cameras into the project (``-o`` or in place).  The
 multi-view engine writes ``<image-set>.ply``; ``--two-view`` runs the
 two-view engine on the first two cameras and, as in the JAX package's CLI,
 writes no PLY.  ``--mrf`` runs either engine's MRF flow (multi-view: top-K
@@ -48,6 +56,78 @@ def cmd_info(args):
     nf = sum(len(v) for v in proj.features.values())
     nc = sum(len(v) for v in proj.correspondences.values())
     print(f"features: {nf}  correspondences: {nc}")
+    return 0
+
+
+def cmd_calibrate(args):
+    from .calib.rig import CameraCalibration
+    from .config import CalibrationConfig
+    from .data.images import load_image
+    from .data.project_io import load_project, save_project
+    from .features.detect import gather_calibration_points
+
+    proj = load_project(args.project)
+    cfg = CalibrationConfig(board_cols=args.cols - 1,
+                            board_rows=args.rows - 1,
+                            cell_size=args.cell_size,
+                            use_bundle_adjust=args.bundle_adjust)
+    cam_ids = sorted(proj.cameras)
+    set_ids = sorted(s for s in proj.image_sets
+                     if any((s, c) in proj.features for c in cam_ids))
+    if not set_ids:
+        print("no feature sets — detect the boards first", file=sys.stderr)
+        return 1
+    n_corners = cfg.board_cols * cfg.board_rows
+    pts = gather_calibration_points(proj, cam_ids, set_ids, n_corners)
+
+    sizes = []
+    for cid in cam_ids:
+        img = proj.image_sets[set_ids[0]].default_image_for_camera(cid)
+        li = load_image(img.file, 1.0)
+        sizes.append((li.rgb.shape[1], li.rgb.shape[0]))
+
+    res = CameraCalibration(pts, sizes, cfg, device=args.device).calibrate()
+    print(f"mean reprojection error: {res.error:.4f} px "
+          f"(per-iteration: "
+          f"{[round(e, 3) for e in res.per_iteration_errors]})")
+    if res.outlier_observations:
+        dropped = [(cam_ids[c], set_ids[s])
+                   for c, s in res.outlier_observations]
+        print(f"pruned {len(dropped)} inconsistent board observations "
+              f"(all-boards error {res.error_all:.2f} px): {dropped}")
+
+    for i, cid in enumerate(cam_ids):
+        st = res.state
+        proj.cameras[cid].P = st.K[i] @ np.hstack([st.R[i], st.t[i][:, None]])
+        proj.cameras[cid].dist = st.dist[i]
+    save_project(proj, args.output or args.project)
+    return 0
+
+
+def cmd_refraction(args):
+    from .calib.refraction import calibrate, gather_correspondences
+    from .data.project_io import load_project, save_project
+
+    proj = load_project(args.project)
+    cam_ids = sorted(proj.cameras)
+    set_ids = args.image_set or sorted(proj.image_sets)
+    cams = [proj.cameras[c].to_camera() for c in cam_ids]
+    p1, p2, v1, v2 = gather_correspondences(proj, cam_ids, set_ids)
+    if len(p1) == 0:
+        print("no correspondences — detect and match features first",
+              file=sys.stderr)
+        return 1
+    print(f"{len(p1)} correspondences")
+    res = calibrate(cams, p1, p2, v1, v2, device=args.device)
+    print(f"chi2: {res.chi2_before:.2f} -> {res.chi2_after:.2f} "
+          f"({res.iterations} iters), n = {res.refractive_index:.4f}")
+    for i, cid in enumerate(cam_ids):
+        px, py, d = res.plane_params(i)
+        rec = proj.cameras[cid]
+        rec.refr_px, rec.refr_py = px, py
+        rec.refr_dist = d
+        rec.refr_index = res.refractive_index
+    save_project(proj, args.output or args.project)
     return 0
 
 
@@ -129,6 +209,29 @@ def main(argv=None):
     sp = sub.add_parser("info")
     sp.add_argument("project")
     sp.set_defaults(fn=cmd_info)
+
+    sp = sub.add_parser("calibrate")
+    sp.add_argument("project")
+    sp.add_argument("-o", "--output")
+    sp.add_argument("--rows", type=int, default=10,
+                    help="board squares down (inner corners: rows - 1)")
+    sp.add_argument("--cols", type=int, default=12,
+                    help="board squares across (inner corners: cols - 1)")
+    sp.add_argument("--cell-size", type=float, default=11.0)
+    sp.add_argument("--bundle-adjust", action="store_true")
+    sp.add_argument("--device", default=None,
+                    help="torch device (default: cuda)")
+    sp.set_defaults(fn=cmd_calibrate)
+
+    sp = sub.add_parser("refraction")
+    sp.add_argument("project")
+    sp.add_argument("-o", "--output")
+    sp.add_argument("--image-set", action="append", default=None,
+                    help="image sets whose correspondences to use "
+                         "(repeatable; default: all)")
+    sp.add_argument("--device", default=None,
+                    help="torch device (default: cuda)")
+    sp.set_defaults(fn=cmd_refraction)
 
     sp = sub.add_parser("stereo")
     sp.add_argument("project")

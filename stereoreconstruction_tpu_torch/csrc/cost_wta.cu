@@ -68,6 +68,12 @@
 //   enter it); the volume mode stores each label's costs coalesced.  Built
 //   with --fmad=false, the float32 costs, and so the picks, are the plain
 //   version's bit for bit.
+//
+// Radii: the kernel is one template on r, built for r = 1 .. 7.  The
+// weight planes take (2r+1)^2 x 128 x 4 B of a block's shared memory (62 KB
+// at r = 5, 115 KB at r = 7: 135 KB a block with the halos, so one block an
+// SM there); cost_wta_smem_bytes and cost_wta_blocks_per_sm report both for
+// each r.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -78,8 +84,9 @@ namespace {
 constexpr int kTW = 32;            // tile columns (a warp)
 constexpr int kTH = 4;             // tile rows
 constexpr int kThreads = kTW * kTH;
-// the shared-memory stride of a halo row (>= kTW + 2r; a warp narrower
-// than 32 columns needs one that puts its rows on distinct banks)
+// the shared-memory stride of a halo row up to r = 5 (>= kTW + 2r; a warp
+// narrower than 32 columns needs one that puts its rows on distinct
+// banks); a wider halo takes its own width
 constexpr int kHS = 42;
 constexpr int kL = 4;              // labels a chunk
 constexpr int kLP = kL % 4 == 0 ? 4 : 1;   // labels a warped-halo cell
@@ -98,7 +105,7 @@ struct Tile {
   static constexpr int T = S * S;
   static constexpr int HH = kTH + 2 * R;      // halo rows
   static constexpr int HW = kTW + 2 * R;      // halo columns
-  static constexpr int HS = kHS;              // their stride in shared memory
+  static constexpr int HS = kHS >= HW ? kHS : HW;   // their stride
   static_assert(HS >= HW, "a halo row fits its stride");
   static constexpr int NC = HH * HW;          // halo cells
   static constexpr int NH = (HH - 1) * HS + HW;   // their shared-memory span
@@ -497,7 +504,20 @@ int launch(const float* depths, const float* warped, const uint8_t* wvalid,
   return (int)cudaGetLastError();
 }
 
+template <int R, bool kVolume>
+int blocks_per_sm() {
+  int n = 0;
+  if (configure<R, kVolume>() != cudaSuccess) return 0;
+  const cudaError_t occ = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, cost_wta_kernel<R, kVolume>, kThreads, Tile<R>::kSmem);
+  return occ == cudaSuccess ? n : 0;
+}
+
 }  // namespace
+
+// The radii the library is built for: 1 .. 7 (TwoViewConfig.window_radius
+// is 5).
+#define COST_RADII(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7)
 
 // depths [D] f32; warped [D, H, W] f32; wvalid [D, H, W] bool; gray_ref
 // [H, W] f32; left_valid [H, W] bool (mask & sample() validity of the
@@ -512,11 +532,17 @@ extern "C" int cost_wta_launch(const float* depths, const float* warped,
                                int W, int D, int radius,
                                float max_color_diff, float bad_ret,
                                cudaStream_t stream) {
-  // radius 5 is the two-view engine's (TwoViewConfig.window_radius)
-  if (radius != 5) return (int)cudaErrorInvalidValue;
-  return launch<5, false>(depths, warped, wvalid, gray_ref, left_valid,
-                          weights, min_out, second_out, best_out, H, W, D,
-                          max_color_diff, bad_ret, stream);
+  switch (radius) {
+#define COST_CASE(r)                                                        \
+  case r:                                                                   \
+    return launch<r, false>(depths, warped, wvalid, gray_ref, left_valid,   \
+                            weights, min_out, second_out, best_out, H, W, D, \
+                            max_color_diff, bad_ret, stream);
+    COST_RADII(COST_CASE)
+#undef COST_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // warped [D, H, W] f32; wvalid [D, H, W] bool; gray_ref [H, W] f32;
@@ -530,23 +556,44 @@ extern "C" int cost_volume_launch(const float* warped, const uint8_t* wvalid,
                                   int W, int D, int radius,
                                   float max_color_diff, float bad_ret,
                                   cudaStream_t stream) {
-  if (radius != 5) return (int)cudaErrorInvalidValue;
-  return launch<5, true>(nullptr, warped, wvalid, gray_ref, left_valid,
-                         weights, volume, nullptr, nullptr, H, W, D,
-                         max_color_diff, bad_ret, stream);
+  switch (radius) {
+#define COST_CASE(r)                                                       \
+  case r:                                                                  \
+    return launch<r, true>(nullptr, warped, wvalid, gray_ref, left_valid,  \
+                           weights, volume, nullptr, nullptr, H, W, D,     \
+                           max_color_diff, bad_ret, stream);
+    COST_RADII(COST_CASE)
+#undef COST_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
-// The blocks of the kernel (volume mode or not) resident on one SM, as the
-// runtime computes them for its threads and shared memory; 0 on an error.
-extern "C" int cost_wta_blocks_per_sm(int volume) {
-  int n = 0;
-  const cudaError_t err =
-      volume ? configure<5, true>() : configure<5, false>();
-  if (err != cudaSuccess) return 0;
-  const cudaError_t occ =
-      volume ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   &n, cost_wta_kernel<5, true>, kThreads, Tile<5>::kSmem)
-             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   &n, cost_wta_kernel<5, false>, kThreads, Tile<5>::kSmem);
-  return occ == cudaSuccess ? n : 0;
+// The blocks of the radius's kernel (volume mode or not) resident on one
+// SM, as the runtime computes them for its threads and shared memory; 0 on
+// an error or for a radius the library is not built for.
+extern "C" int cost_wta_blocks_per_sm(int volume, int radius) {
+  switch (radius) {
+#define COST_CASE(r)                                                    \
+  case r:                                                               \
+    return volume ? blocks_per_sm<r, true>() : blocks_per_sm<r, false>();
+    COST_RADII(COST_CASE)
+#undef COST_CASE
+    default:
+      return 0;
+  }
+}
+
+// The dynamic shared memory a block of the radius's kernel takes, in bytes
+// (0 for a radius the library is not built for).
+extern "C" int cost_wta_smem_bytes(int radius) {
+  switch (radius) {
+#define COST_CASE(r) \
+  case r:            \
+    return (int)Tile<r>::kSmem;
+    COST_RADII(COST_CASE)
+#undef COST_CASE
+    default:
+      return 0;
+  }
 }

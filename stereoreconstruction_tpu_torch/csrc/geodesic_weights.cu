@@ -222,6 +222,11 @@ int launch(const float* rgb, const uint8_t* valid, float* out, int H, int W,
 
 }  // namespace
 
+// The radii the library is built for: 1 .. 7 (the window state takes
+// (2r+1)^2 x 32 x BY x 4 B of dynamic shared memory: 71 KB a block at
+// r = 5, 128 KB at r = 7).
+#define WEIGHTS_RADII(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7)
+
 // rgb [H, W, 3] f32, valid [H, W] bool or null -> out [S*S, H, W] f32.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int geodesic_weights_launch(const float* rgb, const uint8_t* valid,
@@ -229,10 +234,11 @@ extern "C" int geodesic_weights_launch(const float* rgb, const uint8_t* valid,
                                        int iters, float sigma,
                                        cudaStream_t stream) {
   switch (radius) {
-    case 2:
-      return launch<2>(rgb, valid, out, H, W, iters, sigma, stream);
-    case 5:
-      return launch<5>(rgb, valid, out, H, W, iters, sigma, stream);
+#define WEIGHTS_CASE(r) \
+  case r:               \
+    return launch<r>(rgb, valid, out, H, W, iters, sigma, stream);
+    WEIGHTS_RADII(WEIGHTS_CASE)
+#undef WEIGHTS_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -242,10 +248,11 @@ extern "C" int geodesic_weights_launch(const float* rgb, const uint8_t* valid,
 // (0 for a radius the library is not built for).
 extern "C" int geodesic_weights_smem_bytes(int radius) {
   switch (radius) {
-    case 2:
-      return (int)Tile<2>::kSmemBytes;
-    case 5:
-      return (int)Tile<5>::kSmemBytes;
+#define WEIGHTS_CASE(r) \
+  case r:               \
+    return (int)Tile<r>::kSmemBytes;
+    WEIGHTS_RADII(WEIGHTS_CASE)
+#undef WEIGHTS_CASE
     default:
       return 0;
   }

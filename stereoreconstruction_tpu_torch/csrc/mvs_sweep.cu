@@ -67,6 +67,15 @@
 // (-inf, -1) and exits (the caller writes inf there); in top-K mode every
 // pixel is swept, since the hypotheses of a masked pixel enter the MRF's
 // pairwise terms of its neighbours.
+//
+// Radii and list lengths: every radius 1 .. 7 has a WTA instance and a
+// list instance whose length (1 .. 16) is read at run time; r = 2 with
+// K = 9 (MultiViewConfig's defaults) keeps its compile-time list.  Up to
+// r = 2 a window's tap bits fit one word and its loops unroll fully, with
+// the weights in registers; from r = 3 (49 .. 225 taps) the mask takes
+// several words and the weight arrays live in local memory (cached in L1),
+// the loops unrolled a row at a time.  The arithmetic and its order are
+// the same at every radius.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -77,6 +86,46 @@ namespace {
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 4;
 constexpr float kWeps = 1e-10f;
+// the longest hypothesis list of the run-time-K instances
+constexpr int kMaxK = 16;
+
+// Loops over a window's taps unroll fully while its bits fit one word
+// (r <= 2: the weights stay in registers); a wider window's T taps would
+// unroll into thousands of instructions whose weight arrays live in local
+// memory anyway, so its loops unroll one row at a time.
+template <int R>
+struct Win {
+  static constexpr int S = 2 * R + 1;
+  static constexpr int T = S * S;
+  static constexpr int NW = (T + 31) / 32;     // words of a tap mask
+  static constexpr int kRowUnroll = NW == 1 ? S : 1;
+  static constexpr int kTapUnroll = NW == 1 ? T : S;
+  static_assert(S <= 32, "a row or column mask is one 32-bit word");
+};
+
+// A window's tap mask, bit k = tap k (row-major), in NW words.
+template <int NW>
+struct TapMask {
+  uint32_t w[NW];
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int i = 0; i < NW; ++i) w[i] = 0u;
+  }
+  __device__ __forceinline__ void set(int k) { w[k >> 5] |= 1u << (k & 31); }
+  __device__ __forceinline__ uint32_t bit(int k) const {
+    return (w[k >> 5] >> (k & 31)) & 1u;
+  }
+  // every one of the T taps set
+  __device__ __forceinline__ bool all(int T) const {
+    bool f = true;
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      const int n = T - 32 * i;
+      f = f && w[i] == (n >= 32 ? ~0u : (1u << n) - 1u);
+    }
+    return f;
+  }
+};
 
 // The terms of the NCC (ncc_from_sums, mvs_mode) that depend on the left
 // window alone, in the plain version's order of operations.
@@ -116,18 +165,20 @@ __device__ __forceinline__ float ncc_from_sums(const LeftTerms& t, float s_r,
 // are).
 template <int R, bool FULL>
 __device__ __forceinline__ void interior_sums(
-    const float* __restrict__ g, int ws, uint32_t lmask,
+    const float* __restrict__ g, int ws,
+    const TapMask<Win<R>::NW>& lmask,
     const float (&w)[(2 * R + 1) * (2 * R + 1)],
     const float (&wl)[(2 * R + 1) * (2 * R + 1)], float& s_r, float& s_rr,
     float& s_lr) {
   constexpr int S = 2 * R + 1;
-#pragma unroll
+  constexpr int kRU = Win<R>::kRowUnroll;
+#pragma unroll (kRU)
   for (int r = 0; r < S; ++r) {
     const float* row = g + r * ws;
 #pragma unroll
     for (int c = 0; c < S; ++c) {
       const int k = r * S + c;
-      if (FULL || ((lmask >> k) & 1u)) {
+      if (FULL || lmask.bit(k)) {
         const float wr = w[k] * __ldg(row + c);
         s_r = s_r + wr;
         s_rr = s_rr + wr * wr;
@@ -145,7 +196,7 @@ __device__ __forceinline__ void interior_sums(
 template <int R>
 __device__ __forceinline__ float border_ncc(
     const float* __restrict__ g, float x2, float y2, float ixf, float iyf,
-    int ws, float fws, float fhs, uint32_t lmask,
+    int ws, float fws, float fhs, const TapMask<Win<R>::NW>& lmask,
     const float (&w)[(2 * R + 1) * (2 * R + 1)],
     const float (&wl)[(2 * R + 1) * (2 * R + 1)]) {
   constexpr int S = 2 * R + 1;
@@ -157,24 +208,32 @@ __device__ __forceinline__ float border_ncc(
     if (xc > -1.f && xc < fws) cols |= 1u << c;
     jx[c] = (int)fminf(fmaxf(ixf + (float)(c - R), 0.f), fws - 1.f);
   }
-  uint32_t vmask = 0;
+  // one word of tap bits at r <= 2; a wider window tests its row, column
+  // and mask bits tap by tap
+  constexpr bool kOneWord = Win<R>::NW == 1;
+  constexpr int kRU = Win<R>::kRowUnroll;
+  uint32_t vmask = 0, rows = 0;
   int jy[S];
 #pragma unroll
   for (int r = 0; r < S; ++r) {
     const float yr = y2 + (float)(r - R);
-    if (yr > -1.f && yr < fhs) vmask |= cols << (r * S);
+    if (yr > -1.f && yr < fhs) {
+      if (kOneWord) vmask |= cols << (r * S);
+      else rows |= 1u << r;
+    }
     jy[r] = (int)fminf(fmaxf(iyf + (float)(r - R), 0.f), fhs - 1.f) * ws;
   }
-  vmask &= lmask;
+  if (kOneWord) vmask &= lmask.w[0];
   float s_w = 0.f, s_l = 0.f, s_r = 0.f, s_ll = 0.f, s_rr = 0.f, s_lr = 0.f,
         cnt = 0.f;
-#pragma unroll
+#pragma unroll (kRU)
   for (int r = 0; r < S; ++r) {
 #pragma unroll
     for (int c = 0; c < S; ++c) {
       const int k = r * S + c;
       const float wr = w[k] * __ldg(g + jy[r] + jx[c]);
-      if ((vmask >> k) & 1u) {
+      if (kOneWord ? (vmask >> k) & 1u
+                   : (rows >> r) & (cols >> c) & lmask.bit(k)) {
         s_w = s_w + w[k];
         s_l = s_l + wl[k];
         s_r = s_r + wr;
@@ -189,7 +248,7 @@ __device__ __forceinline__ float border_ncc(
 }
 
 // The K > 1 hypothesis lists of a block, [entry][thread]: ncc in entries
-// 0 .. K-1, depth in K .. 2K-1.
+// 0 .. k-1, depth in k .. 2k-1 (room for K entries each).
 template <int K>
 __device__ __forceinline__ float* topk_lists() {
   __shared__ float lists[2 * K * kBlockX * kBlockY];
@@ -200,6 +259,8 @@ __device__ __forceinline__ float* topk_lists() {
 // On the H100 that runs 13-19% faster than the 168-182 registers (2-3
 // blocks) the compiler picks unbounded, the ~20 spilled bytes
 // notwithstanding; more blocks (fewer registers) run no faster.
+// K = 1: the WTA carry; K > 1: lists of K; K = 0: lists of a run-time
+// length n_list <= kMaxK (n_list is read only then).
 template <int R, int K>
 __global__ void __launch_bounds__(kBlockX * kBlockY, 4)
 mvs_sweep_kernel(const float* __restrict__ depths,
@@ -212,10 +273,11 @@ mvs_sweep_kernel(const float* __restrict__ depths,
                  const uint8_t* __restrict__ center_valid,
                  float* __restrict__ ncc_out, float* __restrict__ depth_out,
                  int H, int W, int N, int hs, int ws, int label0,
-                 int n_labels, float thr) {
-  constexpr int S = 2 * R + 1;
-  constexpr int T = S * S;
-  static_assert(T < 32, "tap mask is one 32-bit word");
+                 int n_labels, float thr, int n_list) {
+  constexpr int T = Win<R>::T;
+  constexpr int kTU = Win<R>::kTapUnroll;
+  constexpr int KL = K == 0 ? kMaxK : K;   // list room
+  const int kk = K == 0 ? n_list : K;      // list length
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int y = blockIdx.y * kBlockY + threadIdx.y;
   if (x >= W || y >= H) return;
@@ -228,18 +290,19 @@ mvs_sweep_kernel(const float* __restrict__ depths,
   }
 
   float w[T], wl[T];
-  uint32_t lmask = 0;
-#pragma unroll
+  TapMask<Win<R>::NW> lmask;
+  lmask.clear();
+#pragma unroll (kTU)
   for (int k = 0; k < T; ++k) {
     w[k] = wts[k * HW + p];
     wl[k] = w[k] * gl[k * HW + p];
-    if (lv[k * HW + p] && w[k] > kWeps) lmask |= 1u << k;
+    if (lv[k * HW + p] && w[k] > kWeps) lmask.set(k);
   }
   // the label-independent sums of an interior window, row-major
   float h_w = 0.f, h_l = 0.f, h_ll = 0.f, h_cnt = 0.f;
-#pragma unroll
+#pragma unroll (kTU)
   for (int k = 0; k < T; ++k) {
-    if ((lmask >> k) & 1u) {
+    if (lmask.bit(k)) {
       h_w = h_w + w[k];
       h_l = h_l + wl[k];
       h_ll = h_ll + wl[k] * wl[k];
@@ -247,7 +310,7 @@ mvs_sweep_kernel(const float* __restrict__ depths,
     }
   }
   const LeftTerms inner = left_terms(h_w, h_l, h_ll, h_cnt);
-  const bool full = lmask == (1u << T) - 1u;
+  const bool full = lmask.all(T);
   uint32_t nmask = 0;
   for (int n = 0; n < N; ++n)
     if (nbr_valid[n]) nmask |= 1u << n;
@@ -259,12 +322,13 @@ mvs_sweep_kernel(const float* __restrict__ depths,
   constexpr int NT = kBlockX * kBlockY;
   float lo = -INFINITY, lo_d = -1.f;
   [[maybe_unused]] float* list = nullptr;
-  if constexpr (K > 1) {
-    list = topk_lists<K>() + threadIdx.y * kBlockX + threadIdx.x;
+  if constexpr (K != 1) {
+    list = topk_lists<KL>() + threadIdx.y * kBlockX + threadIdx.x;
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
+    for (int j = 0; j < KL; ++j) {
+      if (j >= kk) break;
       list[j * NT] = -INFINITY;
-      list[(K + j) * NT] = -1.f;
+      list[(kk + j) * NT] = -1.f;
     }
   }
   // the coordinates are read one unit ahead: their load from device
@@ -328,18 +392,20 @@ mvs_sweep_kernel(const float* __restrict__ depths,
         lo_d = depth;
       }
     } else if (m > -INFINITY && lo <= m) {
-      float t_n[K], t_d[K];
+      float t_n[KL], t_d[KL];
 #pragma unroll
-      for (int j = 0; j < K; ++j) {
+      for (int j = 0; j < KL; ++j) {
+        if (j >= kk) break;
         t_n[j] = list[j * NT];
-        t_d[j] = list[(K + j) * NT];
+        t_d[j] = list[(kk + j) * NT];
       }
 #pragma unroll
-      for (int j = 0; j < K; ++j) {
-        const bool next = j + 1 < K && t_n[j + 1] <= m;
+      for (int j = 0; j < KL; ++j) {
+        if (j >= kk) break;
+        const bool next = j + 1 < kk && t_n[j + 1] <= m;
         const bool here = t_n[j] <= m;
         list[j * NT] = next ? t_n[j + 1] : here ? m : t_n[j];
-        list[(K + j) * NT] = next ? t_d[j + 1] : here ? depth : t_d[j];
+        list[(kk + j) * NT] = next ? t_d[j + 1] : here ? depth : t_d[j];
       }
       lo = list[0];
     }
@@ -349,9 +415,10 @@ mvs_sweep_kernel(const float* __restrict__ depths,
     depth_out[p] = lo_d;
   } else {
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
+    for (int j = 0; j < KL; ++j) {
+      if (j >= kk) break;
       ncc_out[(size_t)j * HW + p] = list[j * NT];
-      depth_out[(size_t)j * HW + p] = list[(K + j) * NT];
+      depth_out[(size_t)j * HW + p] = list[(kk + j) * NT];
     }
   }
 }
@@ -361,24 +428,54 @@ void launch(const float* depths, const float* coords, const float* gray_nbr,
             const float* gl, const uint8_t* lv, const float* weights,
             const uint8_t* nbr_valid, const uint8_t* center_valid,
             float* ncc_out, float* depth_out, int H, int W, int N, int hs,
-            int ws, int label0, int n_labels, float thr,
+            int ws, int label0, int n_labels, float thr, int n_list,
             cudaStream_t stream) {
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY);
   mvs_sweep_kernel<R, K><<<grid, block, 0, stream>>>(
       depths, coords, gray_nbr, gl, lv, weights, nbr_valid, center_valid,
-      ncc_out, depth_out, H, W, N, hs, ws, label0, n_labels, thr);
+      ncc_out, depth_out, H, W, N, hs, ws, label0, n_labels, thr, n_list);
+}
+
+// The radius's instances: the WTA carry, lists of a run-time length, and
+// at r = 2 (MultiViewConfig.window_radius) lists of MultiViewConfig.top_k.
+template <int R>
+bool dispatch(int wta, int n_topk, const float* depths, const float* coords,
+              const float* gray_nbr, const float* gl, const uint8_t* lv,
+              const float* weights, const uint8_t* nbr_valid,
+              const uint8_t* center_valid, float* ncc_out, float* depth_out,
+              int H, int W, int N, int hs, int ws, int label0, int n_labels,
+              float thr, cudaStream_t stream) {
+  if (wta ? n_topk != 1 : (n_topk < 1 || n_topk > kMaxK)) return false;
+  if (wta)
+    launch<R, 1>(depths, coords, gray_nbr, gl, lv, weights, nbr_valid,
+                 center_valid, ncc_out, depth_out, H, W, N, hs, ws, label0,
+                 n_labels, thr, 1, stream);
+  else if (R == 2 && n_topk == 9)
+    launch<2, 9>(depths, coords, gray_nbr, gl, lv, weights, nbr_valid,
+                 center_valid, ncc_out, depth_out, H, W, N, hs, ws, label0,
+                 n_labels, thr, 9, stream);
+  else
+    launch<R, 0>(depths, coords, gray_nbr, gl, lv, weights, nbr_valid,
+                 center_valid, ncc_out, depth_out, H, W, N, hs, ws, label0,
+                 n_labels, thr, n_topk, stream);
+  return true;
 }
 
 }  // namespace
 
+// The radii the library is built for.
+#define SWEEP_RADII(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7)
+
 // depths [D] f32; coords [n_labels, N, 2, H, W] f32 for labels
 // [label0, label0 + n_labels); gray_nbr [N, hs, ws] f32; gl/weights
 // [S*S, H, W] f32; lv [S*S, H, W] bool; nbr_valid [N] bool (N <= 32);
-// center_valid [H, W] bool or null (all valid; read only when n_topk == 1)
-// -> ncc_out, depth_out [n_topk, H, W] f32, ascending.  Built for radius 2
-// (MultiViewConfig) and n_topk 1 (WTA) or 9 (MultiViewConfig.top_k).
-// Returns cudaGetLastError() after the launch (0 on success).
+// center_valid [H, W] bool or null (all valid; read only when wta)
+// -> ncc_out, depth_out [n_topk, H, W] f32, ascending.  wta = 1: the WTA
+// carry (n_topk = 1); wta = 0: the top-K lists, n_topk 1 .. 16.  Built for
+// radius 1 .. 7.
+// Returns cudaGetLastError() after the launch (0 on success), and
+// cudaErrorInvalidValue for a radius, top-K or N the library does not take.
 extern "C" int mvs_sweep_launch(const float* depths, const float* coords,
                                 const float* gray_nbr, const float* gl,
                                 const uint8_t* lv, const float* weights,
@@ -386,21 +483,22 @@ extern "C" int mvs_sweep_launch(const float* depths, const float* coords,
                                 const uint8_t* center_valid, float* ncc_out,
                                 float* depth_out, int H, int W, int N, int hs,
                                 int ws, int label0, int n_labels, int radius,
-                                int n_topk, float thr, cudaStream_t stream) {
-  if (radius != 2 || N > 32) return (int)cudaErrorInvalidValue;
-  switch (n_topk) {
-    case 1:
-      launch<2, 1>(depths, coords, gray_nbr, gl, lv, weights, nbr_valid,
-                   center_valid, ncc_out, depth_out, H, W, N, hs, ws, label0,
-                   n_labels, thr, stream);
-      break;
-    case 9:
-      launch<2, 9>(depths, coords, gray_nbr, gl, lv, weights, nbr_valid,
-                   center_valid, ncc_out, depth_out, H, W, N, hs, ws, label0,
-                   n_labels, thr, stream);
-      break;
+                                int wta, int n_topk, float thr,
+                                cudaStream_t stream) {
+  if (N > 32) return (int)cudaErrorInvalidValue;
+  bool ok = false;
+  switch (radius) {
+#define SWEEP_CASE(r)                                                        \
+  case r:                                                                    \
+    ok = dispatch<r>(wta, n_topk, depths, coords, gray_nbr, gl, lv, weights, \
+                     nbr_valid, center_valid, ncc_out, depth_out, H, W, N,   \
+                     hs, ws, label0, n_labels, thr, stream);                 \
+    break;
+    SWEEP_RADII(SWEEP_CASE)
+#undef SWEEP_CASE
     default:
-      return (int)cudaErrorInvalidValue;
+      break;
   }
+  if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

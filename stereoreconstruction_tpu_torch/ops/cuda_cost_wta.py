@@ -19,7 +19,8 @@ import torch
 from . import cuda_build
 from .ncc_fast import fast_cost_plane, make_ref_view
 
-KERNEL_RADII = (5,)
+# The window radii the kernel is built for; another raises on the card.
+KERNEL_RADII = tuple(range(1, 8))
 
 
 def wta_scan(cost_fn, depths, shape, dtype):
@@ -78,8 +79,8 @@ def _check_inputs(warped, wvalid, gray_ref, left_valid, weights, radius,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if radius not in KERNEL_RADII:
-        raise ValueError(f"kernel built for radius {KERNEL_RADII}, "
-                         f"got {radius}")
+        raise ValueError(f"kernel built for radius {KERNEL_RADII[0]}.."
+                         f"{KERNEL_RADII[-1]}, got {radius}")
     size = 2 * radius + 1
     n_depths = warped.shape[0] if warped.dim() == 3 else -1
     h, w = gray_ref.shape

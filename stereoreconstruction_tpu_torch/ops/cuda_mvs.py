@@ -23,8 +23,10 @@ import torch
 from . import cuda_build
 from .ncc import ncc_accumulate
 
-KERNEL_RADII = (2,)
-KERNEL_TOPK = (9,)     # MultiViewConfig.top_k; the WTA is the kernel's K = 1
+# The window radii and top-K list lengths the kernel is built for; another
+# value raises on the card (the plain versions on the CPU take any).
+KERNEL_RADII = tuple(range(1, 8))
+KERNEL_TOPK = tuple(range(1, 17))
 
 
 def mvs_wta_slab(plane_cost, depths, thr: float, shape, *, label0=0,
@@ -153,17 +155,20 @@ def mvs_topk_plain(depths, coords, gray_nbr, gl, lv, weights, nbr_valid, *,
                          label0=label0, n_labels=coords.shape[0])
 
 
-def _launch(top_k, depths, coords, gray_nbr, gl, lv, weights, nbr_valid,
+def _launch(wta, top_k, depths, coords, gray_nbr, gl, lv, weights, nbr_valid,
             center_valid, *, radius, thr, label0):
-    """Check the CUDA inputs, launch the kernel with K = top_k and return
-    its (ncc, depth) outputs, each [top_k, H, W].  center_valid None: every
-    centre is valid."""
+    """Check the CUDA inputs, launch the kernel (the WTA carry when
+    ``wta``, else lists of ``top_k``) and return its (ncc, depth) outputs,
+    each [top_k, H, W].  center_valid None: every centre is valid."""
     dev = depths.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if radius not in KERNEL_RADII:
-        raise ValueError(f"kernel built for radius {KERNEL_RADII}, "
-                         f"got {radius}")
+        raise ValueError(f"kernel built for radius {KERNEL_RADII[0]}.."
+                         f"{KERNEL_RADII[-1]}, got {radius}")
+    if top_k not in KERNEL_TOPK:
+        raise ValueError(f"kernel built for top_k {KERNEL_TOPK[0]}.."
+                         f"{KERNEL_TOPK[-1]}, got {top_k}")
     h, w = gl.shape[-2:]
     size = 2 * radius + 1
     n_labels, n_nbr = coords.shape[:2]
@@ -197,7 +202,7 @@ def _launch(top_k, depths, coords, gray_nbr, gl, lv, weights, nbr_valid,
     ncc = torch.empty((top_k, h, w), dtype=torch.float32, device=dev)
     depth = torch.empty((top_k, h, w), dtype=torch.float32, device=dev)
     fn = cuda_build.library("mvs_sweep").mvs_sweep_launch
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
@@ -206,7 +211,7 @@ def _launch(top_k, depths, coords, gray_nbr, gl, lv, weights, nbr_valid,
                 nbr_valid.data_ptr(),
                 None if center_valid is None else center_valid.data_ptr(),
                 ncc.data_ptr(), depth.data_ptr(), h, w, n_nbr, hs, ws,
-                label0, n_labels, radius, top_k, thr,
+                label0, n_labels, radius, int(wta), top_k, thr,
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mvs_sweep kernel launch failed: CUDA error {rc}")
@@ -233,9 +238,9 @@ def cuda_mvs_wta(depths, coords, gray_nbr, gl, lv, weights, nbr_valid, *,
             radius=radius, thr=thr, center_valid=center_valid,
             label0=label0)
         return best_ncc, best_depth, torch.zeros((), dtype=torch.float32)
-    ncc, depth = _launch(1, depths, coords, gray_nbr, gl, lv, weights,
-                         nbr_valid, center_valid, radius=radius, thr=thr,
-                         label0=label0)
+    ncc, depth = _launch(True, 1, depths, coords, gray_nbr, gl, lv,
+                         weights, nbr_valid, center_valid, radius=radius,
+                         thr=thr, label0=label0)
     cuda_mvs_wta.launches += 1
     return ncc[0], depth[0], torch.zeros((), dtype=torch.float32,
                                          device=depths.device)
@@ -256,10 +261,8 @@ def cuda_mvs_topk(depths, coords, gray_nbr, gl, lv, weights, nbr_valid, *,
             depths, coords, gray_nbr, gl, lv, weights, nbr_valid,
             radius=radius, thr=thr, top_k=top_k, label0=label0)
         return top_ncc, top_depth, torch.zeros((), dtype=torch.float32)
-    if top_k not in KERNEL_TOPK:
-        raise ValueError(f"kernel built for top_k {KERNEL_TOPK}, got {top_k}")
-    top_ncc, top_depth = _launch(top_k, depths, coords, gray_nbr, gl, lv,
-                                 weights, nbr_valid, None,
+    top_ncc, top_depth = _launch(False, top_k, depths, coords, gray_nbr,
+                                 gl, lv, weights, nbr_valid, None,
                                  radius=radius, thr=thr, label0=label0)
     cuda_mvs_topk.launches += 1
     return top_ncc, top_depth, torch.zeros((), dtype=torch.float32,

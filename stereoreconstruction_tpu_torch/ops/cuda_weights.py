@@ -16,7 +16,8 @@ import torch
 from . import cuda_build
 from .weights import geodesic_weights
 
-KERNEL_RADII = (2, 5)
+# The window radii the kernel is built for; another raises on the card.
+KERNEL_RADII = tuple(range(1, 8))
 
 
 def cuda_geodesic_weights(rgb, radius: int, sigma: float = 50.0,
@@ -37,8 +38,8 @@ def cuda_geodesic_weights(rgb, radius: int, sigma: float = 50.0,
     if not rgb.is_contiguous():
         raise ValueError("rgb must be contiguous")
     if radius not in KERNEL_RADII:
-        raise ValueError(f"kernel built for radius {KERNEL_RADII}, "
-                         f"got {radius}")
+        raise ValueError(f"kernel built for radius {KERNEL_RADII[0]}.."
+                         f"{KERNEL_RADII[-1]}, got {radius}")
     h, w = rgb.shape[:2]
     if valid is not None:
         if (valid.dtype != torch.bool or tuple(valid.shape) != (h, w)

@@ -163,3 +163,105 @@ def test_cli_stereo_refuses_unported_options(project, capsys, flag):
                     + flag) != 0
     assert "not ported" in capsys.readouterr().err
     assert not os.path.exists(project / "x")
+
+
+# --------------------------------------------------------------------------
+# calibrate and refraction: both packages' verbs on the same projects
+# --------------------------------------------------------------------------
+
+def _calib_projects(tmp):
+    """Two projects for the calibration verbs, saved with the JAX package's
+    project_io (the port reads the same XML):
+
+    - boards.xml: ``test_rig.py``'s synthetic rig (3 cameras, 6 sets of a
+      7x5-corner board, 0.05 px noise) as checkerboard features, with a
+      black 1024x768 image a camera for the image sizes;
+    - refr.xml: ``test_refraction.py``'s two-camera refractive rig, its
+      projected points as features and correspondences, the interfaces
+      written off the truth (n 1.30, normals at the principal point,
+      distances 6 and 7) for the refraction verb to recover."""
+    from stereoreconstruction_tpu.data import project_io as jio
+    from test_refraction import make_refractive_rig
+    from test_rig import synth_rig
+
+    img = tmp / "black.png"
+    Image.fromarray(np.zeros((768, 1024, 3), np.uint8)).save(img)
+    pts, Ks, cam_R, cam_t, _ = synth_rig(np.random.default_rng(1), n_sets=6,
+                                         noise=0.05)
+    proj = jio.ProjectData(path=str(tmp / "boards.xml"))
+    for i in range(3):
+        proj.cameras[f"cam{i}"] = jio.CameraRecord(
+            id=f"cam{i}", name=f"cam{i}",
+            P=np.hstack([np.eye(3), np.zeros((3, 1))]), dist=np.zeros(5))
+    for s in range(6):
+        sid = f"set{s}"
+        iset = jio.ImageSetRecord(id=sid, name=sid, root=str(tmp))
+        for i in range(3):
+            iset.images.append(jio.ImageRecord(file=str(img),
+                                               camera_id=f"cam{i}"))
+            if pts[i][s] is not None:
+                proj.features[(sid, f"cam{i}")] = [
+                    jio.FeatureRecord(x=float(x), y=float(y), corner_index=k,
+                                      image_set_id=sid)
+                    for k, (x, y) in enumerate(pts[i][s])]
+        proj.image_sets[sid] = iset
+    jio.save_project(proj, str(tmp / "boards.xml"))
+
+    cams, p1, p2, _, _, _ = make_refractive_rig(
+        np.random.default_rng(0))
+    proj = jio.ProjectData(path=str(tmp / "refr.xml"))
+    iset = jio.ImageSetRecord(id="s", name="s", root=str(tmp))
+    for i, (cam, p, d) in enumerate(zip(cams, (p1, p2), (6.0, 7.0))):
+        K, R, t = (np.asarray(x) for x in (cam.K, cam.R, cam.t))
+        proj.cameras[f"cam{i}"] = jio.CameraRecord(
+            id=f"cam{i}", name=f"cam{i}", P=K @ np.hstack([R, t[:, None]]),
+            dist=np.zeros(5), refr_px=K[0, 2], refr_py=K[1, 2], refr_dist=d,
+            refr_index=1.30)
+        iset.images.append(jio.ImageRecord(file=str(img),
+                                           camera_id=f"cam{i}"))
+        proj.features[("s", f"cam{i}")] = [
+            jio.FeatureRecord(x=float(x), y=float(y), kind="surf")
+            for x, y in p]
+    proj.image_sets["s"] = iset
+    proj.correspondences[("s", "cam0", "s", "cam1")] = [
+        (k, k) for k in range(len(p1))]
+    jio.save_project(proj, str(tmp / "refr.xml"))
+
+
+def test_cli_calibrate_and_refraction_match_jax(tmp_path, capsys):
+    """Both verbs of both packages (the JAX package's on its CPU backend,
+    the port's with --device cpu) on the same projects write the same
+    cameras: P matrices within 1e-6 relative, distortions within 1e-5
+    relative or 1e-8 (the rig is undistorted, so the fitted coefficients
+    are weakly determined, as in test_torch_rig.py), the interface
+    parameters and the index within 1e-6 relative."""
+    from stereoreconstruction_tpu import cli as jcli
+
+    _calib_projects(tmp_path)
+    board = ["--rows", "6", "--cols", "8", "--cell-size", "11"]
+    out = {}
+    for name, main, extra in (("jax", jcli.main, []),
+                              ("torch", cli.main, ["--device", "cpu"])):
+        cal = str(tmp_path / f"cal_{name}.xml")
+        refr = str(tmp_path / f"refr_{name}.xml")
+        assert main(["calibrate", str(tmp_path / "boards.xml"), "-o", cal]
+                    + board + extra) == 0
+        assert main(["refraction", str(tmp_path / "refr.xml"), "-o", refr]
+                    + extra) == 0
+        out[name] = (load_project(cal), load_project(refr))
+    assert "correspondences" in capsys.readouterr().out
+    for (g, w) in zip(out["torch"], out["jax"]):
+        assert sorted(g.cameras) == sorted(w.cameras)
+        for cid in w.cameras:
+            gc, wc = g.cameras[cid], w.cameras[cid]
+            np.testing.assert_allclose(gc.P, wc.P, rtol=1e-6)
+            np.testing.assert_allclose(gc.dist, wc.dist, rtol=1e-5,
+                                       atol=1e-8)
+            np.testing.assert_allclose(
+                [gc.refr_px, gc.refr_py, gc.refr_dist, gc.refr_index],
+                [wc.refr_px, wc.refr_py, wc.refr_dist, wc.refr_index],
+                rtol=1e-6)
+    # the verb's LM (RefractionConfig: epsilon 1) moved the interfaces
+    # from where the project held them
+    refr = out["torch"][1].cameras
+    assert refr["cam0"].refr_index != 1.30 and refr["cam1"].refr_dist != 7.0

@@ -28,7 +28,16 @@ def test_importing_every_module_loads_no_jax():
             "stereoreconstruction_tpu_torch.ops.cuda_warp",
             "stereoreconstruction_tpu_torch.ops.cuda_cost_wta",
             "stereoreconstruction_tpu_torch.ops.cuda_sample",
-            "stereoreconstruction_tpu_torch.stereo.mrf"} <= set(mods)
+            "stereoreconstruction_tpu_torch.stereo.mrf",
+            "stereoreconstruction_tpu_torch.runtime.trace",
+            "stereoreconstruction_tpu_torch.optim.lm",
+            "stereoreconstruction_tpu_torch.calib.zhang",
+            "stereoreconstruction_tpu_torch.calib.rig",
+            "stereoreconstruction_tpu_torch.calib.bundle",
+            "stereoreconstruction_tpu_torch.calib.refraction",
+            "stereoreconstruction_tpu_torch.calib.badata",
+            "stereoreconstruction_tpu_torch.calib.floydwarshall",
+            "stereoreconstruction_tpu_torch.features.detect"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

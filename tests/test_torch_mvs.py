@@ -309,14 +309,14 @@ def test_topk_wrapper_runs_plain_version_on_cpu(rng):
 # use_masks=False) under mvs_wta_slab / mvs_topk_slab
 # --------------------------------------------------------------------------
 
-def _edge_sweep_inputs(ndt, seed=12):
+def _edge_sweep_inputs(ndt, seed=12, radius=2):
     """A ragged 13x17 reference against 16x21 neighbour images, 12 labels
     from label0 = 1, three neighbours of which the last is padded.  The
     coordinates straddle every image border (a quarter on whole or half
     pixels, where the tap range tests flip), 5% are the -3e6 sentinel, and
     some left taps are invalid or weigh <= 1e-10."""
     rng = np.random.default_rng(seed)
-    size, h, w, hs, ws, n_lab, n_nbr = 5, 13, 17, 16, 21, 12, 3
+    size, h, w, hs, ws, n_lab, n_nbr = 2 * radius + 1, 13, 17, 16, 21, 12, 3
     x2 = rng.uniform(-4.0, ws + 4.0, (n_lab, n_nbr, h, w))
     y2 = rng.uniform(-4.0, hs + 4.0, (n_lab, n_nbr, h, w))
     snap = rng.uniform(size=x2.shape) < 0.25
@@ -336,7 +336,7 @@ def _edge_sweep_inputs(ndt, seed=12):
         nbr_valid=np.array([True, True, False]))
 
 
-def _jax_sweep(a, mode, thr, label0=1):
+def _jax_sweep(a, mode, thr, label0=1, radius=2):
     """JAX's slab over a's coordinate volume, each neighbour's plane from
     ``twoview_cost_plane`` as the JAX exact method calls it."""
     from stereoreconstruction_tpu.ops.ncc import twoview_cost_plane
@@ -351,7 +351,7 @@ def _jax_sweep(a, mode, thr, label0=1):
         ncc = jnp.stack([twoview_cost_plane(
             gray_ref, j["gl"], j["lv"], j["lv"], j["gray_nbr"][n],
             jnp.ones_like(j["gray_nbr"][n], bool), j["weights"],
-            jnp.moveaxis(xy[n], 0, -1), xy[n, 0] > -1e6, radius=2,
+            jnp.moveaxis(xy[n], 0, -1), xy[n, 0] > -1e6, radius=radius,
             mvs_mode=True, use_masks=False) for n in range(n_nbr)])
         return jnp.where(j["nbr_valid"][:, None, None], ncc, -jnp.inf)
 
@@ -362,12 +362,12 @@ def _jax_sweep(a, mode, thr, label0=1):
     return tuple(np.asarray(x) for x in out)
 
 
-def _port_sweep(a, mode, thr, label0=1):
+def _port_sweep(a, mode, thr, label0=1, radius=2):
     t = {k: torch.as_tensor(v) for k, v in a.items()}
     h, w = a["gl"].shape[-2:]
     for k in ("gl", "lv", "weights"):
-        t[k] = t[k].reshape(25, h, w)
-    kw = dict(radius=2, thr=thr, label0=label0)
+        t[k] = t[k].reshape((2 * radius + 1) ** 2, h, w)
+    kw = dict(radius=radius, thr=thr, label0=label0)
     if mode == "wta":
         out = mvs_wta_plain(**t, **kw)
     else:
@@ -414,3 +414,30 @@ def test_sweep_plain_matches_jax_at_the_edges(mode, ndt):
         return
     assert same.mean() >= 0.99
     np.testing.assert_allclose(tn[both], jn[both], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["wta", "topk"])
+@pytest.mark.parametrize("radius", [1, 3])
+def test_sweep_plain_matches_jax_at_other_radii(mode, radius):
+    """The same edge inputs at the other window radii the sweep kernel is
+    built for (1 and 3 here; the kernel takes 1 .. 7), in float64: the
+    same depth at every pixel and list entry, NCCs within 1e-12.  At
+    radius 1 a window keeps at most 9 taps, so two-tap windows (NCC +-1 up
+    to rounding) are left out of the WTA comparison as above."""
+    a = _edge_sweep_inputs(np.float64, radius=radius)
+    thr = 0.2
+    jn, jd = _jax_sweep(a, mode, thr, radius=radius)
+    tn, td = _port_sweep(a, mode, thr, radius=radius)
+    assert td.shape == jd.shape
+    if mode == "wta":
+        tie = np.abs(jn) > 1.0 - 1e-9
+        jn, jd, tn, td = jn[None], jd[None], tn[None], td[None]
+    else:
+        tie = np.zeros(jd.shape[1:], bool)
+        jn, jd = _sets_by_depth(jn, jd)
+        tn, td = _sets_by_depth(tn, td)
+    assert np.isfinite(jn).mean() > 0.5
+    assert ((td == jd).all(axis=0) | tie).all()
+    both = (td == jd) & np.isfinite(tn) & np.isfinite(jn)
+    np.testing.assert_array_equal(np.isfinite(tn), np.isfinite(jn))
+    np.testing.assert_allclose(tn[both], jn[both], rtol=0, atol=1e-12)

@@ -318,6 +318,42 @@ def test_cost_plain_versions_match_jax_on_stress_input(dtype):
     assert same.mean() >= (1.0 if dtype == torch.float64 else 0.995)
 
 
+@pytest.mark.parametrize("radius", [1, 3])
+def test_cost_plain_versions_match_jax_at_other_radii(radius):
+    """The stress input at other window radii the cost kernel is built for
+    (1 and 3 here; the kernel takes 1 .. 7), in float64: the same cost
+    classes, costs within 1e-9, the WTA picks equal (NaN equal to NaN)."""
+    depths, warped, wvalid, gray, left, weights = cost_stress_inputs(
+        torch.device("cpu"), radius, dtype=torch.float64)
+    vol = cost_volume_plain(warped, wvalid, gray, left, weights,
+                            radius=radius).numpy()
+    got = cost_wta_plain(depths, warped, wvalid, gray, left, weights,
+                         radius=radius)
+    h, w = gray.shape
+    jref = jnf.make_ref_view(jnp.asarray(gray.numpy()),
+                             jnp.asarray(left.numpy()),
+                             jnp.asarray(weights.numpy()), radius,
+                             inb=jnp.ones((h, w), bool))
+    jvol = jax.jit(jax.vmap(lambda wp, wv: jnf.fast_cost_plane(
+        jref, wp, wv)))(jnp.asarray(warped.numpy()),
+                        jnp.asarray(wvalid.numpy()))
+    jdepths = jnp.asarray(depths.numpy())
+    want = [np.asarray(a) for a in j_wta_scan(
+        lambda d: (jvol[d], jdepths[d]), jdepths, (h, w), jvol.dtype)]
+    jvol = np.asarray(jvol)
+    for c in (np.inf, 1000.0, 120.0):
+        assert ((vol == c) == (jvol == c)).all(), c
+    fin = np.isfinite(jvol)
+    np.testing.assert_allclose(vol[fin], jvol[fin], rtol=0, atol=1e-9)
+    for g, want_g in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(np.isinf(g.numpy()), np.isinf(want_g))
+        ok = np.isfinite(want_g)
+        np.testing.assert_allclose(g.numpy()[ok], want_g[ok], rtol=0,
+                                   atol=1e-9)
+    best = got[2].numpy()
+    assert ((best == want[2]) | (np.isnan(best) & np.isnan(want[2]))).all()
+
+
 def _emulated_volume(warped, wvalid, gray, left, weights, radius, chunk,
                      max_color_diff=120.0, bad_ret=1000.0):
     """The cost kernel's arithmetic in torch: labels in chunks of

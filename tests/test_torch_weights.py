@@ -71,7 +71,7 @@ def test_valid_plane_matches_jax(rng):
                                full[:, :, row0 + 2:row0 + 16], atol=2e-5)
 
 
-@pytest.mark.parametrize("radius", [2, 5])
+@pytest.mark.parametrize("radius", [2, 5, 1, 3])
 def test_fast_weights_with_holes_match_jax(rng, radius):
     """The CUDA kernel's reference at its edges: a ragged image (the
     kernel's pixel tiles end ragged) whose validity plane is full of holes
