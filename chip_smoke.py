@@ -262,7 +262,10 @@ def kernel_ms(fn, reps, device, kernel, strict=False):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     # the profiler now and then records no launch of a kernel in a whole
     # session (PERF.md section 7): such a session is run again, twice at most
-    for _ in range(3):
+    for attempt in range(3):
+        if attempt:
+            print(f"  timing: profiled no launch of {kernel}; session run "
+                  f"again (attempt {attempt + 1} of 3)")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -1599,13 +1602,10 @@ def check_cost_radii(device, reps):
 # The JAX package's results on the same inputs, re-measured on its CPU
 # backend at commit 2fc76a3 by scripts/calib_reference.py (float64):
 # CameraCalibration with the default CalibrationConfig on
-# tests/golden/example_corners.npz (8 cameras, 30 sets, 101 boards), the
-# 12-set reduced budget (num_iterations=1, min_subset=8), and bench.py's
-# 8-camera bundle adjustment (numpy seed 1, 10 iterations).
+# tests/golden/example_corners.npz (8 cameras, 30 sets, 101 boards), and
+# bench.py's 8-camera bundle adjustment (numpy seed 1, 10 iterations).
 JAX_RIG_FULL = dict(error=0.3956861357534081, pruned=40,
                     error_all=11.633704971071456)
-JAX_RIG_REDUCED = dict(error=0.4979103897381178, pruned=17,
-                       error_all=14.5386470958479)
 JAX_BA_COST_DROP = 872.7344454972149
 RIG_TOL_PX = 0.002          # inlier mean error, against the JAX package's
 BA_DROP_RTOL = 1e-6         # the cost drop, against the JAX package's
@@ -1613,19 +1613,15 @@ CORNERS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                        "golden", "example_corners.npz")
 
 
-def example_corners(reduced):
+def example_corners():
     """image_points[cam][set] and sizes of the example project's detected
-    corners; ``reduced``: the first 12 sets that 2 cameras see."""
+    corners."""
     data = np.load(CORNERS, allow_pickle=True)
     cam_ids = sorted(str(r[0]) for r in data["__sizes__"])
     set_ids = sorted({k.split("|")[0] for k in data.files if "|" in k})
     sizes = {str(r[0]): (int(r[1]), int(r[2])) for r in data["__sizes__"]}
     pts = [[data[f"{s}|{c}"] if f"{s}|{c}" in data.files else None
             for s in set_ids] for c in cam_ids]
-    if reduced:
-        keep = [s for s in range(len(set_ids))
-                if sum(p[s] is not None for p in pts) >= 2][:12]
-        pts = [[p[s] for s in keep] for p in pts]
     return pts, [sizes[c] for c in cam_ids]
 
 
@@ -1687,7 +1683,7 @@ def calib_compare(title, device, call):
     return got, wall, got_cpu, wall_cpu
 
 
-def calib_rig_phase(device, reduced):
+def calib_rig_phase(device):
     """CameraCalibration with the default CalibrationConfig on the example
     project's corners, on the card and on the CPU: the inlier mean error
     within RIG_TOL_PX of the JAX package's and the same number of pruned
@@ -1695,13 +1691,10 @@ def calib_rig_phase(device, reduced):
     from stereoreconstruction_tpu_torch.calib.rig import CameraCalibration
     from stereoreconstruction_tpu_torch.config import CalibrationConfig
 
-    pts, sizes = example_corners(reduced)
-    cfg = CalibrationConfig(num_iterations=1, min_subset=8) if reduced \
-        else CalibrationConfig()
-    want = JAX_RIG_REDUCED if reduced else JAX_RIG_FULL
-    title = "rig calibration " + ("12-set reduced" if reduced else
-                                  "full") + (f" ({len(pts)} cameras, "
-                                             f"{len(pts[0])} sets)")
+    pts, sizes = example_corners()
+    cfg = CalibrationConfig()
+    want = JAX_RIG_FULL
+    title = f"rig calibration full ({len(pts)} cameras, {len(pts[0])} sets)"
     got, wall, got_cpu, wall_cpu = calib_compare(
         title, device,
         lambda dev: CameraCalibration(pts, sizes, cfg, device=dev).calibrate())
@@ -2083,7 +2076,7 @@ def main():
     del rig, rig2
 
     t0 = time.perf_counter()
-    calib = {"rig": calib_rig_phase(device, reduced=False)}
+    calib = {"rig": calib_rig_phase(device)}
     calib.update(calib_refraction_phase(device))
     calib["bundle"] = calib_ba_phase(device)
     print(f"calibration phases in {time.perf_counter() - t0:.1f} s: "

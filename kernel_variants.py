@@ -62,6 +62,9 @@ SWEEP_VARIANTS = [
       ("wl[k]", "wl[k * kBlockX * kBlockY]"),
       # the static shared array fits 48 KB up to r = 4: build r = 2 only
       (SWEEP_RADII, "#define SWEEP_RADII(X) X(2)")], False),
+    ("top-K 9 through the run-time list (<2, 0>)",
+     [("  else if (R == 2 && n_topk == 9)\n", "  else if (false)\n")],
+     False),
     ("block 128 x 1",
      [("kBlockX = 32;", "kBlockX = 128;"), ("kBlockY = 4;", "kBlockY = 1;")],
      False),
@@ -264,11 +267,12 @@ def sweep_cases(dev, rig, cfg):
         return all(torch.equal(got, want) for call, plain in cases
                    for got, want in zip(call(), plain)), {}
 
+    # each call launches one sweep kernel; the top-K list's instance is
+    # <2, 9> or the run-time list's <2, 0>, as the variant builds it
     def times():
-        return {"WTA": cs.kernel_ms(cases[0][0], 10, dev,
-                                    "mvs_sweep_kernel<2, 1>")[0],
-                "top-K": cs.kernel_ms(cases[1][0], 10, dev,
-                                      "mvs_sweep_kernel<2, 9>")[0]}
+        return {mode: cs.kernel_ms(call, 10, dev, "mvs_sweep_kernel<2, ",
+                                   strict=True)[0]
+                for mode, (call, _) in zip(("WTA", "top-K"), cases)}
 
     return check, times
 

@@ -10,11 +10,9 @@ Prints one JSON line after each of:
 - ``ba``: bench.py's bundle adjustment (8 cameras, 512 points, 4,096
   observations, numpy seed 1, 10 iterations): the cost before and after
   and its drop;
-- ``reduced``: CameraCalibration on the first 12 sets of
-  tests/golden/example_corners.npz that two cameras see, with
-  CalibrationConfig(num_iterations=1, min_subset=8): the inlier mean
-  error, the pruned observations, the all-boards error;
-- ``full``: the same on all 30 sets with the default CalibrationConfig.
+- ``full``: CameraCalibration with the default CalibrationConfig on all
+  30 sets of tests/golden/example_corners.npz: the inlier mean error, the
+  pruned observations, the all-boards error.
 Each entry also gives its wall seconds on this CPU.
 """
 
@@ -63,22 +61,16 @@ def bundle():
                 drop=float(hist[0] / hist[-1]), s=time.time() - t0)
 
 
-def rig(reduced):
+def rig():
     data = np.load(CORNERS, allow_pickle=True)
     cam_ids = sorted(str(r[0]) for r in data["__sizes__"])
     sizes = {str(r[0]): (int(r[1]), int(r[2])) for r in data["__sizes__"]}
     set_ids = sorted({k.split("|")[0] for k in data.files if "|" in k})
     pts = [[data[f"{s}|{c}"] if f"{s}|{c}" in data.files else None
             for s in set_ids] for c in cam_ids]
-    cfg = CalibrationConfig()
-    if reduced:
-        keep = [s for s in range(len(set_ids))
-                if sum(p[s] is not None for p in pts) >= 2][:12]
-        pts = [[p[s] for s in keep] for p in pts]
-        cfg = CalibrationConfig(num_iterations=1, min_subset=8)
     t0 = time.time()
     res = CameraCalibration(pts, [sizes[c] for c in cam_ids],
-                            cfg).calibrate()
+                            CalibrationConfig()).calibrate()
     return dict(error=res.error, pruned=len(res.outlier_observations),
                 error_all=res.error_all, s=time.time() - t0)
 
@@ -86,9 +78,7 @@ def rig(reduced):
 def main():
     out = {"ba": bundle()}
     print(json.dumps(out), flush=True)
-    out["reduced"] = rig(reduced=True)
-    print(json.dumps(out), flush=True)
-    out["full"] = rig(reduced=False)
+    out["full"] = rig()
     print(json.dumps(out), flush=True)
 
 

@@ -57,8 +57,9 @@ def _interfaces(Kinv, model):
 
 
 def make_residual_fn(cams: Sequence[Camera], p1, p2, vi1, vi2,
-                     device="cpu"):
-    """Residual function over all correspondences, on ``device``.
+                     device=None):
+    """Residual function over all correspondences, on ``device`` (CUDA
+    unless named otherwise).
 
     p1/p2: [N, 2] full-resolution pixel coords; vi1/vi2: [N] view indices.
     Returns f(model [3V+1] float64 tensor on ``device``) -> [N] residuals:
@@ -66,6 +67,7 @@ def make_residual_fn(cams: Sequence[Camera], p1, p2, vi1, vi2,
     distance between their closest points scaled into pixels by each
     view's focal length over the midpoint's depth.
     """
+    device = resolve_device(device)
     stacked = stack_cameras([c.to(device=device, dtype=torch.float64)
                              for c in cams])
 

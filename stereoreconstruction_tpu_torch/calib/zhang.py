@@ -25,6 +25,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..optim.lm import lm_optimize
 
 
@@ -236,7 +237,7 @@ def calibrate_camera(obj_points: np.ndarray,
                      dist0: Optional[np.ndarray] = None,
                      max_iterations: int = 60,
                      reject_outlier_views: bool = True,
-                     device="cpu"
+                     device=None
                      ) -> CameraCalibrationResult:
     """cv::calibrateCamera equivalent.
 
@@ -249,8 +250,10 @@ def calibrate_camera(obj_points: np.ndarray,
     calibrate.cpp:765-822): after the first LM solve, views whose per-view
     rms is far above the median are dropped and the solve repeats on the
     inliers.  rvecs/tvecs of dropped views are still reported (from the
-    first solve).  The refinement runs on ``device``.
+    first solve).  The refinement runs on ``device`` (CUDA unless named
+    otherwise).
     """
+    device = resolve_device(device)
     obj = np.asarray(obj_points, np.float64)
     obj_t = torch.as_tensor(obj, device=device)
 
@@ -334,7 +337,7 @@ def stereo_calibrate(obj_points: np.ndarray,
                      K1, dist1, K2, dist2,
                      max_iterations: int = 60,
                      reject_outlier_views: bool = True,
-                     device="cpu"
+                     device=None
                      ) -> StereoCalibrationResult:
     """Relative pose (R, t): x2 = R x1 + t, refined over all board views.
 
@@ -346,8 +349,9 @@ def stereo_calibrate(obj_points: np.ndarray,
     per-view rms is far above the median (misdetections, 180-degree index
     flips — which only show up as *cross-view* inconsistency) are dropped
     and the relative pose is refit on the inliers.  The refinement runs
-    on ``device``.
+    on ``device`` (CUDA unless named otherwise).
     """
+    device = resolve_device(device)
     obj = np.asarray(obj_points, np.float64)
     n_views = len(image_points1)
 

@@ -438,7 +438,10 @@ void launch(const float* depths, const float* coords, const float* gray_nbr,
 }
 
 // The radius's instances: the WTA carry, lists of a run-time length, and
-// at r = 2 (MultiViewConfig.window_radius) lists of MultiViewConfig.top_k.
+// at r = 2 (MultiViewConfig.window_radius) lists of MultiViewConfig.top_k,
+// which the main path runs: there the run-time list takes 1.20-1.25 ms a
+// view against 0.96-0.97 ms (NVIDIA H100 80GB HBM3, 700 W;
+// kernel_variants.py).
 template <int R>
 bool dispatch(int wta, int n_topk, const float* depths, const float* coords,
               const float* gray_nbr, const float* gl, const uint8_t* lv,

@@ -39,6 +39,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 from ..runtime.trace import count, trace
 
 
@@ -62,9 +64,10 @@ def lm_optimize(
         epsilon: float = 1.0,
         validate_fn: Optional[Callable[[np.ndarray], bool]] = None,
         fd_steps: Optional[np.ndarray] = None,
-        device="cpu",
+        device=None,
 ) -> LMResult:
-    """Minimize ``sum(residual_fn(model)**2)``.
+    """Minimize ``sum(residual_fn(model)**2)`` on ``device`` (CUDA unless
+    named otherwise).
 
     residual_fn: model [P] float64 tensor on ``device`` -> residuals [N];
       free of in-place writes and host reads (``torch.func`` transforms it).
@@ -77,7 +80,7 @@ def lm_optimize(
       refractioncalibration.cpp:201-232 (step down may differ from step up —
       pass (step_lo, step_hi) via a [P, 2] array for asymmetric steps).
     """
-    dev = torch.device(device)
+    dev = resolve_device(device)
     model = np.asarray(model0, np.float64).copy()
     nparams = model.size
     if fixed is None:
