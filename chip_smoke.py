@@ -93,11 +93,33 @@ Phases; any failure raises, and the script exits non-zero:
     of the JAX package's.  Phases 17-19 print their wall seconds, LM
     iterations and host reads, and each calibration layer's seconds, and
     launch none of the five kernels (their counts stay 0);
-20. print the kernel table as one JSON line (kernel 1 has a row for each
+20. SURF on the card (``cli detect --kind surf``): detect_and_describe on
+    the rig's 8 views rendered at full size (768x1024), on the card and
+    then the same calls on the CPU (seconds a view): the keypoint sets
+    agree on >= 99% of keypoints, the common keypoints' angles and
+    descriptors within 1e-9, match_descriptors on views 0 and 1 finds
+    >= 90% of the CPU's matches, and every view's keypoint count (1%) and
+    response sum (1e-6) are the JAX package's
+    (scripts/surf_reference.py);
+21. the README workflow through the port's CLI in a temporary directory:
+    analytic renders of an 11x9-corner board (the CLI's 12x10 squares) in
+    8 poses, seen by the rig's 8 cameras without their ports at 1024x768;
+    ``info``, ``detect`` (every board found, >= 95% of them placed right
+    and their corners within 0.2 px median of the analytic), ``match`` (28 pairs a pose), ``calibrate``
+    on the card (focal lengths within 1%), then ``stereo`` on the main
+    path's rig from its full-size views (``--scale 0.5``) twice with
+    ``--resume``: the first with ``--trace`` and ``--device-trace`` (8
+    depth PNGs, each view's initial-estimate stage and coverage metric in
+    the trace, the sweep kernel in the device trace's readout, depths
+    against the analytic depth), the second loading every view (depths
+    bit-equal, no launch of kernels 1 and 2, kernel 5 launched); each
+    verb's seconds;
+22. print the kernel table as one JSON line (kernel 1 has a row for each
     radius; each row's launches are summed over the main paths that run
     it, each read right after its own run; the instances of phase 16 have
-    rows of their own, timed on their gates' inputs, with 0 launches),
-    then the result line {"ok": true, "device": {...}} last.
+    rows of their own, timed on their gates' inputs, with 0 launches;
+    phases 17-21 add none), then the result line {"ok": true, "device":
+    {...}} last.
 
 A kernel's time ("ms") is its device time from torch.profiler, the mean of
 10 launches each after an L2 flush; the event time of the whole wrapper
@@ -205,15 +227,20 @@ def _pixel_rays(cam, h, w, scale):
 def render_scene(cams, h, w, scale, plane_z):
     """Every view of the textured world plane z = plane_z: (rgbs [V, h, w, 3]
     in 0..255, masks [V, h, w] all true, true depths [V, h, w] along each
-    camera's principal ray)."""
-    rgbs, depths = [], []
-    for cam in cams:
+    camera's principal ray).  The views render in threads (numpy's
+    ufuncs release the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def view(cam):
         o, d = _pixel_rays(cam, h, w, scale)
         pts = o + ((plane_z - o[..., 2]) / d[..., 2])[..., None] * d
-        rgbs.append(procedural_texture(pts[..., :2] * TEXTURE_SCALE))
         K, R, t = cam["K"], cam["R"], cam["t"]
         pr = R.T @ (np.linalg.inv(K) @ (K[:, 2] / K[2, 2]))
-        depths.append((pts + R.T @ t) @ (pr / np.linalg.norm(pr)))
+        return (procedural_texture(pts[..., :2] * TEXTURE_SCALE),
+                (pts + R.T @ t) @ (pr / np.linalg.norm(pr)))
+
+    with ThreadPoolExecutor(max_workers=len(cams)) as ex:
+        rgbs, depths = zip(*ex.map(view, cams))
     return (np.stack(rgbs), np.ones((len(cams), h, w), bool),
             np.stack(depths))
 
@@ -810,9 +837,12 @@ def profiled(device, title, body):
                else "")
         print(f"profile:   {name:28s} {sec:8.3f} s  {100 * sec / wall:5.1f}%"
               f"{dev}")
-    # device-side rows of the stage annotations span kernels: leave them out
+    # device-side rows of annotations (these stages and the tracer's
+    # ranges) span kernels and have a host row of the same name: leave
+    # them out
+    host_keys = {e.key for e in averages if e.device_type == DeviceType.CPU}
     kernels = [e for e in averages
-               if e.device_type == DeviceType.CUDA and e.key not in stages]
+               if e.device_type == DeviceType.CUDA and e.key not in host_keys]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     print(f"profile: device busy {busy:.3f} s = {100 * busy / wall:.1f}% of "
           f"the wall; {sum(e.count for e in kernels)} kernel launches")
@@ -1925,6 +1955,443 @@ def calib_ba_phase(device):
     return dict(seconds=wall, cpu_seconds=wall_cpu)
 
 
+# --------------------------------------------------------------------------
+# SURF on the card (features/surf.py; phase 20)
+# --------------------------------------------------------------------------
+
+# The JAX package's SURF on surf_grays() (detect_and_describe's defaults:
+# threshold 100, at most 1000 keypoints), from scripts/surf_reference.py on
+# its CPU backend (the JAX package as at commit 414ff6b): keypoints and the
+# float64 sum of the responses a view.  Every view has more than 1000
+# candidates, so the sums say more than the counts.
+JAX_SURF = dict(
+    keypoints=[1000] * 8,
+    response_sums=[448586.2856140137, 431961.8612976074, 402269.40115356445,
+                   385403.53143310547, 382317.7246398926, 397813.8639831543,
+                   437514.6434020996, 449974.5247192383])
+SURF_COUNT_RTOL = 0.01      # card keypoints a view, against the JAX package's
+SURF_SUM_RTOL = 1e-6        # card response sum a view, against the JAX's
+SURF_AGREE = 0.99           # card and CPU keypoint sets: the share in common
+SURF_TOL = 1e-9             # card - CPU angles and descriptors, matched
+SURF_MATCH_SHARE = 0.9      # card's matches of views 0-1 among the CPU's
+
+
+def surf_rgbs():
+    """The 8 views of the main path's rig rendered at full size (768x1024,
+    float32 0..255)."""
+    cams = converging_rig(N_VIEWS, focal=FOCAL, h=FULL_H, w=FULL_W,
+                          baseline=BASELINE, target_z=TARGET_Z,
+                          refr_index=REFR_INDEX, plane_dist=PORT_DIST)
+    rgbs, _, _ = render_scene(cams, FULL_H, FULL_W, 1.0, TARGET_Z)
+    return rgbs.astype(np.float32)
+
+
+def surf_grays(rgbs=None):
+    """Each view's gray image by the reference's luma (data/images.py
+    to_gray), float32."""
+    if rgbs is None:
+        rgbs = surf_rgbs()
+    return [0.11 * r[..., 0] + 0.59 * r[..., 1] + 0.3 * r[..., 2]
+            for r in rgbs]
+
+
+def keypoint_keys(fs):
+    """Each keypoint's (x, y, filter size)."""
+    return [(float(x), float(y), float(s))
+            for (x, y), s in zip(fs.xy, fs.size)]
+
+
+def surf_phase(device, grays):
+    """detect_and_describe on every view, on the card and then on the CPU
+    (seconds a view); the keypoint sets agree on >= SURF_AGREE of their
+    keypoints, angles and descriptors of the common ones within SURF_TOL;
+    match_descriptors on views 0 and 1 finds >= SURF_MATCH_SHARE of the
+    CPU's matches; the card's keypoint counts and response sums are the
+    JAX package's within SURF_COUNT_RTOL and SURF_SUM_RTOL."""
+    from stereoreconstruction_tpu_torch.features.matching import (
+        match_descriptors)
+    from stereoreconstruction_tpu_torch.features.surf import (
+        detect_and_describe)
+
+    print(f"SURF phase on {nvidia_smi_line()}")
+    cpu = torch.device("cpu")
+    detect_and_describe(grays[0], device=device)      # first-call set-up
+    runs = {}
+    for dev in (device, cpu):
+        out, secs = [], []
+        for g in grays:
+            t0 = time.perf_counter()
+            out.append(detect_and_describe(g, device=dev))  # numpy: synced
+            secs.append(time.perf_counter() - t0)
+        runs[dev.type] = (out, secs)
+    (card, card_s), (host, host_s) = runs["cuda"], runs["cpu"]
+    counts = [len(f.xy) for f in card]
+    sums = [float(np.sum(f.response, dtype=np.float64)) for f in card]
+    h, w = grays[0].shape
+    print(f"SURF ({len(grays)} views {h}x{w}, threshold 100, <= 1000 "
+          f"keypoints): card {statistics.mean(card_s):.4f} s a view "
+          f"({[round(s, 4) for s in card_s]}), CPU "
+          f"{statistics.mean(host_s):.4f} s a view "
+          f"({torch.get_num_threads()} threads); keypoints card {counts}, "
+          f"CPU {[len(f.xy) for f in host]}, JAX {JAX_SURF['keypoints']}")
+    worst = dict(agree=1.0, angle=0.0, desc=0.0, resp=0.0)
+    for a, b in zip(card, host):
+        ka = {k: i for i, k in enumerate(keypoint_keys(a))}
+        kb = {k: i for i, k in enumerate(keypoint_keys(b))}
+        common = sorted(ka.keys() & kb.keys())
+        ia, ib = [ka[k] for k in common], [kb[k] for k in common]
+        worst["agree"] = min(worst["agree"],
+                             len(common) / max(len(ka), len(kb), 1))
+        if common:
+            for key, field in (("angle", "angle"), ("desc", "descriptors"),
+                               ("resp", "response")):
+                diff = np.abs(getattr(a, field)[ia].astype(np.float64)
+                              - getattr(b, field)[ib])
+                worst[key] = max(worst[key], float(diff.max()))
+    keys = [dict(zip(range(len(f.xy)), keypoint_keys(f)))
+            for f in (card[0], card[1], host[0], host[1])]
+    m_card = {(keys[0][i], keys[1][j]) for i, j in match_descriptors(
+        card[0].descriptors, card[1].descriptors, device=device)}
+    m_host = {(keys[2][i], keys[3][j]) for i, j in match_descriptors(
+        host[0].descriptors, host[1].descriptors, device=cpu)}
+    share = len(m_card & m_host) / max(len(m_host), 1)
+    print(f"SURF card vs CPU: keypoint sets agree on >= {worst['agree']:.4f}"
+          f" of keypoints; matched keypoints' max |diff| angle "
+          f"{worst['angle']:.3g}, descriptor {worst['desc']:.3g}, response "
+          f"{worst['resp']:.3g}; views 0-1 matches card {len(m_card)}, CPU "
+          f"{len(m_host)}, in common {share:.4f} of the CPU's; response "
+          f"sums card {sums}, JAX {JAX_SURF['response_sums']}")
+    if not (worst["agree"] >= SURF_AGREE and worst["angle"] <= SURF_TOL
+            and worst["desc"] <= SURF_TOL and share >= SURF_MATCH_SHARE
+            and len(m_host) >= 20):
+        raise AssertionError("SURF on the card disagrees with the CPU")
+    for n, s, jn, js in zip(counts, sums, JAX_SURF["keypoints"],
+                            JAX_SURF["response_sums"]):
+        if not (abs(n - jn) <= SURF_COUNT_RTOL * jn
+                and abs(s - js) <= SURF_SUM_RTOL * abs(js)):
+            raise AssertionError("SURF on the card is off the JAX "
+                                 "package's keypoints")
+    return dict(card_s=statistics.mean(card_s),
+                cpu_s=statistics.mean(host_s), keypoints=counts)
+
+
+# --------------------------------------------------------------------------
+# The README workflow through the port's CLI (phase 21)
+# --------------------------------------------------------------------------
+
+BOARD_COLS, BOARD_ROWS = 11, 9      # inner corners: the CLI's 12 x 10 squares
+BOARD_CELL = 3.0
+BOARD_SETS = 8                      # the phase's depth: board poses
+BOARD_SS = 4                        # supersamples along a pixel side
+# detected corners against the analytic.  A board is placed right when its
+# median corner error is within 0.5 px: the numpy detector (the JAX
+# package's, copied) shifts the grid of 1 of these 64 views by a square
+# (pose 3, cam6), and the calibration prunes that pose.  Right boards'
+# corners: the median within 0.2 px (the detector's refinement scatters
+# corners by ~0.1 px; a few land more than 1 px off on a nearby saddle)
+BOARDS_RIGHT = 0.95
+CORNER_MEDIAN_PX = 0.2
+FOCAL_RTOL = 0.01                   # calibrated focal lengths, against truth
+
+
+def rotation(w):
+    """Rodrigues: the rotation matrix of the axis-angle vector w."""
+    th = np.linalg.norm(w)
+    k = w / th
+    kx = np.array([[0.0, -k[2], k[1]], [k[2], 0.0, -k[0]],
+                   [-k[1], k[0], 0.0]])
+    return np.eye(3) + np.sin(th) * kx + (1 - np.cos(th)) * kx @ kx
+
+
+def board_corners():
+    """The board's inner corners [rows*cols, 3] (row-major, z = 0, as
+    calib/rig.py board_object_points)."""
+    return np.array([[c * BOARD_CELL, r * BOARD_CELL, 0.0]
+                     for r in range(BOARD_ROWS) for c in range(BOARD_COLS)])
+
+
+def board_outline(margin):
+    """The 4 outer corners of the board's squares grown by ``margin``
+    squares [4, 3]."""
+    lo, hi = -(1 + margin) * BOARD_CELL, margin * BOARD_CELL
+    return np.array([[x, y, 0.0] for x in (lo, BOARD_COLS * BOARD_CELL + hi)
+                     for y in (lo, BOARD_ROWS * BOARD_CELL + hi)])
+
+
+def board_view(cam, Rb, tb):
+    """The camera's pose of the board: (R, t) of board to camera."""
+    return cam["R"] @ Rb, cam["R"] @ tb + cam["t"]
+
+
+def board_pixels(cam, Rb, tb, pts):
+    """Pinhole projection of board points (continuous pixel coordinates:
+    pixel i covers [i, i+1)); None when a point is behind the camera."""
+    R, t = board_view(cam, Rb, tb)
+    p = pts @ R.T + t
+    if not np.all(p[:, 2] > 0):
+        return None
+    q = p @ cam["K"].T
+    return q[:, :2] / q[:, 2:]
+
+
+def board_poses(cams, n_sets, seed=0):
+    """n_sets board poses (Rb, tb: board to world) near the rig's target,
+    tilted, each with the whole board and its white margin at least 16 px
+    inside every view."""
+    rng = np.random.default_rng(seed)
+    centre = np.array([(BOARD_COLS - 1) * BOARD_CELL / 2,
+                       (BOARD_ROWS - 1) * BOARD_CELL / 2, 0.0])
+    poses = []
+    while len(poses) < n_sets:
+        Rb = rotation(rng.normal(0.0, 0.25, 3))
+        tb = np.array([rng.uniform(-4, 4), rng.uniform(-3, 3),
+                       rng.uniform(56, 68)]) - Rb @ centre
+        edges = [board_pixels(c, Rb, tb, board_outline(0.5))
+                 for c in cams]
+        if all(e is not None and np.all((e >= 16) & (e <= [FULL_W - 16,
+                                                           FULL_H - 16]))
+               for e in edges):
+            poses.append((Rb, tb))
+    return poses
+
+
+def render_board(device, cam, Rb, tb):
+    """One view of the board at FULL_W x FULL_H, rendered analytically as
+    tests/test_cli_workflow.py render_board does (the inverse homography
+    of each sample), with BOARD_SS^2 samples a pixel, in float64 on the
+    device: dark squares 30, light 225, a white margin of half a square,
+    backdrop 128.  Returns uint8 [h, w, 3]."""
+    R, t = board_view(cam, Rb, tb)
+    hinv = torch.as_tensor(np.linalg.inv(cam["K"] @ np.column_stack(
+        [R[:, 0], R[:, 1], t])), device=device)
+    ys, xs = torch.meshgrid(
+        torch.arange(FULL_H, dtype=torch.float64, device=device),
+        torch.arange(FULL_W, dtype=torch.float64, device=device),
+        indexing="ij")
+    c = BOARD_CELL
+    acc = torch.zeros_like(xs)
+    for a in range(BOARD_SS):
+        for b in range(BOARD_SS):
+            p = torch.stack([xs + (b + 0.5) / BOARD_SS,
+                             ys + (a + 0.5) / BOARD_SS,
+                             torch.ones_like(xs)], -1) @ hinv.T
+            u, v = p[..., 0] / p[..., 2], p[..., 1] / p[..., 2]
+            front = p[..., 2] > 0
+            squares = (front & (u >= -c) & (u < BOARD_COLS * c) & (v >= -c)
+                       & (v < BOARD_ROWS * c))
+            margin = (front & (u >= -1.5 * c) & (u < (BOARD_COLS + 0.5) * c)
+                      & (v >= -1.5 * c) & (v < (BOARD_ROWS + 0.5) * c))
+            dark = (torch.floor(u / c) + torch.floor(v / c)) % 2 == 0
+            acc += torch.where(squares & dark, 30.0,
+                               torch.where(margin, 225.0, 128.0))
+    img = torch.round(acc / BOARD_SS ** 2).to(torch.uint8).cpu().numpy()
+    return np.repeat(img[..., None], 3, axis=-1)
+
+
+def workflow_projects(device, tmp, scene_rgbs, cams, poses):
+    """Write the workflow's two projects under ``tmp`` with the port's
+    project_io: boards.xml (the rig's cameras as unknowns, BOARD_SETS image
+    sets of rendered boards) and scene.xml (the main path's refractive
+    cameras and the rig's full-size views as image set "scene")."""
+    from PIL import Image
+
+    from stereoreconstruction_tpu_torch.data.project_io import (
+        CameraRecord, ImageRecord, ImageSetRecord, ProjectData, save_project)
+
+    boards = ProjectData(path=os.path.join(tmp, "boards.xml"))
+    scene = ProjectData(path=os.path.join(tmp, "scene.xml"))
+    for i, cam in enumerate(cams):
+        cid = f"cam{i}"
+        K = cam["K"]
+        boards.cameras[cid] = CameraRecord(
+            id=cid, name=cid, P=K @ np.hstack([np.eye(3), np.zeros((3, 1))]),
+            dist=np.zeros(5))
+        scene.cameras[cid] = CameraRecord(
+            id=cid, name=cid, P=K @ np.hstack([cam["R"], cam["t"][:, None]]),
+            dist=np.zeros(5), refr_px=K[0, 2], refr_py=K[1, 2],
+            refr_dist=cam["plane_dist"], refr_index=cam["refr_index"])
+    for s, (Rb, tb) in enumerate(poses):
+        sid = f"b{s:02d}"
+        iset = ImageSetRecord(id=sid, name=sid, root=tmp)
+        for i, cam in enumerate(cams):
+            fn = os.path.join(tmp, f"{sid}_cam{i}.png")
+            Image.fromarray(render_board(device, cam, Rb, tb)).save(fn)
+            iset.images.append(ImageRecord(file=fn, camera_id=f"cam{i}"))
+        boards.image_sets[sid] = iset
+    iset = ImageSetRecord(id="scene", name="scene", root=tmp)
+    for i, rgb in enumerate(scene_rgbs):
+        fn = os.path.join(tmp, f"scene_cam{i}.png")
+        Image.fromarray(np.round(rgb).astype(np.uint8)).save(fn)
+        iset.images.append(ImageRecord(file=fn, camera_id=f"cam{i}"))
+    scene.image_sets["scene"] = iset
+    save_project(boards, boards.path)
+    save_project(scene, scene.path)
+    return boards.path, scene.path
+
+
+def cli_run(device, argv):
+    """``cli.main(argv)`` on the host clock with the tracer reset and every
+    kernel's count set to 0 just before; fails unless it returns 0.
+    Returns (seconds, {kernel: launches})."""
+    from stereoreconstruction_tpu_torch import cli
+    from stereoreconstruction_tpu_torch.runtime import trace as tracing
+
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    tracing.reset()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]} returned {rc}")
+    return wall, {k: f.launches for k, f in counters.items()}
+
+
+def check_boards(path, cams, poses):
+    """Every board (all are fully visible) detected, its corners against
+    the analytic ones (the detector's pixel centres sit at integers: the
+    projection less 0.5 px).  Returns (the share of boards placed right,
+    their corners' median px, the share of their corners within 1 px)."""
+    from stereoreconstruction_tpu_torch.data.project_io import load_project
+
+    proj = load_project(path)
+    errs = []
+    for s, (Rb, tb) in enumerate(poses):
+        for i, cam in enumerate(cams):
+            feats = proj.features.get((f"b{s:02d}", f"cam{i}"))
+            if not feats or len(feats) != BOARD_COLS * BOARD_ROWS:
+                raise AssertionError(f"board b{s:02d} not found in cam{i}")
+            got = np.array([[f.x, f.y] for f in feats])
+            want = board_pixels(cam, Rb, tb, board_corners()) - 0.5
+            errs.append(np.hypot(*(got - want).T))
+    right = [e for e in errs if np.median(e) <= 0.5]
+    wrong = [k for k, e in enumerate(errs) if np.median(e) > 0.5]
+    if wrong:
+        print("workflow: boards placed a square or more off (pose, camera):"
+              f" {[(k // len(cams), k % len(cams)) for k in wrong]}")
+    corners = np.concatenate(right)
+    return (len(right) / len(errs), float(np.median(corners)),
+            float(np.mean(corners <= 1.0)))
+
+
+def workflow_phase(device, scene_rgbs, true_depth):
+    """The README workflow through the port's CLI in a temporary directory:
+    ``info``, ``detect`` (checkerboards), ``match`` and ``calibrate`` (on
+    the card) on BOARD_SETS rendered board poses seen by the rig's 8
+    cameras without their ports, then ``stereo`` twice with ``--resume``
+    on the main path's rig (its full-size views, ``--scale 0.5``), the
+    first with ``--trace`` and ``--device-trace``.  Gates: every board
+    found, BOARDS_RIGHT of them with their corners near the analytic ones
+    (CORNER_MEDIAN_PX), 28 camera pairs a set
+    matched, the focal lengths within FOCAL_RTOL, 8 depth PNGs, the trace's
+    stages and coverage metrics, the sweep kernel in the device trace's
+    readout, depths against the analytic depth, and the resumed run
+    bit-equal with no sweep launch and a cross-check launch."""
+    from stereoreconstruction_tpu_torch.data.project_io import load_project
+    from stereoreconstruction_tpu_torch.runtime.trace import device_op_table
+
+    cams = converging_rig(N_VIEWS, focal=FOCAL, h=FULL_H, w=FULL_W,
+                          baseline=BASELINE, target_z=TARGET_Z,
+                          refr_index=REFR_INDEX, plane_dist=PORT_DIST)
+    board = ["--rows", str(BOARD_ROWS + 1), "--cols", str(BOARD_COLS + 1)]
+    print(f"workflow phase on {nvidia_smi_line()}")
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        poses = board_poses(cams, BOARD_SETS)
+        boards, scene = workflow_projects(device, tmp, scene_rgbs, cams,
+                                          poses)
+        times["render and write"] = time.perf_counter() - t0
+        times["info"], _ = cli_run(device, ["info", boards])
+        times["detect"], _ = cli_run(device, ["detect", boards] + board)
+        right, med, within = check_boards(boards, cams, poses)
+        times["match"], _ = cli_run(device, ["match", boards])
+        pairs = load_project(boards).correspondences
+        n_pairs = len(cams) * (len(cams) - 1) // 2 * len(poses)
+        calibrated = os.path.join(tmp, "calibrated.xml")
+        times["calibrate"], launched = cli_run(
+            device, ["calibrate", boards, "-o", calibrated, "--cell-size",
+                     str(BOARD_CELL)] + board)
+        focal = [load_project(calibrated).cameras[f"cam{i}"].decompose()[0]
+                 for i in range(len(cams))]
+        focal_err = max(abs(K[a, a] / FOCAL - 1.0) for K in focal
+                        for a in (0, 1))
+        print(f"workflow: {len(poses)} board poses x {len(cams)} cameras at "
+              f"{FULL_W}x{FULL_H}; {right:.4f} of the boards placed right, "
+              f"their corners against the analytic: median {med:.4f} px, "
+              f"{within:.4f} within 1 px; {len(pairs)} pairs matched (want "
+              f"{n_pairs}); focal lengths "
+              f"{[round(float(K[0, 0]), 2) for K in focal]} (truth {FOCAL}),"
+              f" worst {focal_err:.5f} relative")
+        print("workflow stages, s: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in times.items()))
+        if not (right >= BOARDS_RIGHT and med <= CORNER_MEDIAN_PX):
+            raise AssertionError("detected corners are off the analytic")
+        if len(pairs) != n_pairs or any(len(v) != BOARD_COLS * BOARD_ROWS
+                                        for v in pairs.values()):
+            raise AssertionError("match stored the wrong pairs")
+        if focal_err > FOCAL_RTOL or any(launched.values()):
+            raise AssertionError("calibrate is off the true focal length")
+
+        out = os.path.join(tmp, "out")
+        stereo = ["stereo", scene, "--image-set", "scene", "-o", out,
+                  "--scale", str(SCALE), "--min-depth", str(MIN_DEPTH),
+                  "--max-depth", str(MAX_DEPTH), "--depth-levels",
+                  str(N_LABELS), "--cross-check", str(CROSS_CHECK),
+                  "--resume"]
+        tr, prof = os.path.join(tmp, "trace.json"), os.path.join(tmp, "prof")
+        runs = []
+        for k, extra in enumerate((["--trace", tr, "--device-trace", prof],
+                                   [])):
+            npz = os.path.join(tmp, f"depths{k}.npz")
+            wall, launches = cli_run(device, stereo + extra + ["--save-npz",
+                                                               npz])
+            runs.append((np.load(npz)["depths"], wall, launches))
+            times[f"stereo run {k + 1}"] = wall
+        with open(tr) as f:
+            rep = json.load(f)
+        dev_name, table = device_op_table(prof)
+        sweep = {k: v for k, v in table.items() if "mvs_sweep_kernel" in k}
+        pngs = sorted(f for f in os.listdir(out) if f.startswith("depth_")
+                      and f.endswith(".png"))
+        coverage = {m["name"]: m["value"] for m in rep["metrics"]
+                    if m["name"].startswith("stereo/coverage/")}
+        (d1, _, l1), (d2, _, l2) = runs
+        step = (MAX_DEPTH - MIN_DEPTH) / (N_LABELS - 1)
+        cov, med_err = depth_quality(d1, true_depth, step)
+        stages = [f"stereo/mvs/view{i}/initial_estimate"
+                  for i in range(len(cams))]
+        print(f"workflow stereo: {len(pngs)} PNGs; coverage {cov:.4f}, "
+              f"median |depth error| {med_err:.4f} (step {step:.4f}); trace "
+              f"stages {sum(s in rep['stages'] for s in stages)} of "
+              f"{len(stages)} views, coverage metrics {len(coverage)}; "
+              f"device trace ({dev_name}): {len(table)} kernels, sweep "
+              f"{[(k[:40], v) for k, v in sweep.items()]}; launches run 1 "
+              f"{ {k: v for k, v in l1.items() if v} }, resumed run "
+              f"{ {k: v for k, v in l2.items() if v} }; resumed depths "
+              f"bit-equal {np.array_equal(d1, d2, equal_nan=True)}")
+        print("workflow stages, s: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in times.items() if k.startswith(
+                "stereo")))
+        if not (len(pngs) == len(cams) and all(s in rep["stages"]
+                                                for s in stages)
+                and len(coverage) == len(cams) and sweep
+                and dev_name is not None):
+            raise AssertionError("stereo wrote the wrong outputs or trace")
+        if not (med_err <= step and cov >= 0.25):
+            raise AssertionError("workflow depth maps fail the analytic "
+                                 "check")
+        if not (np.array_equal(d1, d2, equal_nan=True)
+                and l1["mvs_sweep"] > 0 and l2["mvs_sweep"] == 0
+                and l2["geodesic_weights"] == 0
+                and l2["sample_nearest"] >= 1):
+            raise AssertionError("the resumed stereo run differs")
+    return {k: round(v, 3) for k, v in times.items()}
+
+
 def kernel_name(mangled):
     """The innermost name of a mangled nested kernel name, with its integer
     template arguments: '_ZN12_GLOBAL__N_116mvs_sweep_kernelILi2ELi9EEEv...'
@@ -2081,6 +2548,18 @@ def main():
     calib["bundle"] = calib_ba_phase(device)
     print(f"calibration phases in {time.perf_counter() - t0:.1f} s: "
           + json.dumps(calib))
+
+    t0 = time.perf_counter()
+    scene_rgbs = surf_rgbs()
+    print(f"full-size views rendered in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    surf = surf_phase(device, surf_grays(scene_rgbs))
+    print(f"SURF phase in {time.perf_counter() - t0:.1f} s: "
+          + json.dumps(surf))
+    t0 = time.perf_counter()
+    workflow = workflow_phase(device, scene_rgbs, true_depth)
+    print(f"workflow phase in {time.perf_counter() - t0:.1f} s: "
+          + json.dumps(workflow))
 
     # a row's launches: its counter's count over the main paths that run
     # it, each read right after its own run (kernel 1 has a row for each

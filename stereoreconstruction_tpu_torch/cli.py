@@ -1,29 +1,41 @@
-"""Headless CLI of the PyTorch port: the ``info``, ``calibrate``,
-``refraction`` and ``stereo`` verbs of the README workflow (project XML
-with board features -> rig calibration -> refractive interfaces -> depth
-maps -> PLY).
+"""Headless CLI of the PyTorch port: the README workflow's ``info``,
+``detect``, ``match``, ``calibrate``, ``refraction`` and ``stereo`` verbs
+(checkerboard and scene images -> features -> correspondences -> rig
+calibration -> refractive interfaces -> depth maps, depth PNGs and PLY).
 
 Usage:
   python -m stereoreconstruction_tpu_torch.cli info   project.xml
+  python -m stereoreconstruction_tpu_torch.cli detect project.xml \
+      --rows 10 --cols 12 [--kind surf --threshold 100] [--image-set S]
+  python -m stereoreconstruction_tpu_torch.cli match  project.xml
   python -m stereoreconstruction_tpu_torch.cli calibrate project.xml \
       --rows 10 --cols 12 --cell-size 11 -o calibrated.xml
   python -m stereoreconstruction_tpu_torch.cli refraction calibrated.xml \
       -o refracted.xml
   python -m stereoreconstruction_tpu_torch.cli stereo project.xml \
-      --image-set bunny --min-depth 30 --max-depth 80 --cross-check 0.5 -o out/
+      --image-set bunny --min-depth 30 --max-depth 80 --cross-check 0.5 \
+      -o out/ [--resume]
   python -m stereoreconstruction_tpu_torch.cli stereo project.xml \
       --image-set bunny --min-depth 30 --max-depth 80 --two-view \
       --save-npz out/depths.npz -o out/
 
 Every verb but ``info`` runs on CUDA unless ``--device`` names another
-device (``--device cpu``).  ``calibrate`` and ``refraction`` write the
-calibrated cameras into the project (``-o`` or in place).  The
-multi-view engine writes ``<image-set>.ply``; ``--two-view`` runs the
-two-view engine on the first two cameras and, as in the JAX package's CLI,
-writes no PLY.  ``--mrf`` runs either engine's MRF flow (multi-view: top-K
-hypotheses + TRW-S; two-view: BP over the cost volume).  Both write the raw
-maps with ``--save-npz``; the depth PNGs and ``--trace`` of the JAX
-package's CLI are not ported yet.
+device (``--device cpu``); the checkerboard detector and the
+correspondences of board corners are host numpy either way.  ``detect``,
+``match``, ``calibrate`` and ``refraction`` write the project (``-o`` or
+in place).  ``stereo`` writes ``depth_<camera>.png`` for every view (MVS:
+grayscale, ``--two-view``: the HSV ramp) and, for the multi-view engine,
+``<image-set>.ply``; ``--two-view`` runs the two-view engine on the first
+two cameras and, as in the JAX package's CLI, writes no PLY.  ``--mrf``
+runs either engine's MRF flow (multi-view: top-K hypotheses + TRW-S;
+two-view: BP over the cost volume).  ``--resume`` keeps each view's
+initial estimate under ``<output>/checkpoint/`` and loads the views
+already computed with the same config (multi-view only, as in the JAX
+package).  Every verb takes ``--trace [JSON]`` (a stage-timer and metric
+summary on stderr, and with a path the tracer's JSON there) and
+``--device-trace LOGDIR`` (a torch.profiler Chrome trace of the whole
+verb, ``LOGDIR/trace.json``; ``runtime.trace.device_op_table`` reads its
+kernel times).
 """
 
 from __future__ import annotations
@@ -37,7 +49,6 @@ import numpy as np
 # Options of the JAX package's stereo verb that this port does not run yet,
 # with the part of the port that will bring each.
 _NOT_PORTED = (
-    ("resume", "--resume", "the runtime (checkpoint) slice"),
     ("shard", "--shard", "the multi-GPU sharding slice"),
 )
 
@@ -59,6 +70,37 @@ def cmd_info(args):
     return 0
 
 
+def cmd_detect(args):
+    from .data.project_io import load_project, save_project
+    from .features.detect import detect_checkerboards, detect_surf
+
+    proj = load_project(args.project)
+    if args.kind == "checkerboard":
+        n = detect_checkerboards(
+            proj, cols=args.cols - 1, rows=args.rows - 1,
+            image_set_ids=args.image_set or None,
+            progress=lambda d, t: print(f"\r{d}/{t}", end="",
+                                        file=sys.stderr))
+        print(f"\ndetected full boards on {n} images")
+    else:
+        n = detect_surf(proj, image_set_ids=args.image_set or None,
+                        threshold=args.threshold, device=args.device)
+        print(f"detected SURF features on {n} images")
+    save_project(proj, args.output or args.project)
+    return 0
+
+
+def cmd_match(args):
+    from .data.project_io import load_project, save_project
+    from .features.detect import find_all_correspondences
+
+    proj = load_project(args.project)
+    n = find_all_correspondences(proj, device=args.device)
+    print(f"stored correspondences for {n} image pairs")
+    save_project(proj, args.output or args.project)
+    return 0
+
+
 def cmd_calibrate(args):
     from .calib.rig import CameraCalibration
     from .config import CalibrationConfig
@@ -75,7 +117,7 @@ def cmd_calibrate(args):
     set_ids = sorted(s for s in proj.image_sets
                      if any((s, c) in proj.features for c in cam_ids))
     if not set_ids:
-        print("no feature sets — detect the boards first", file=sys.stderr)
+        print("no feature sets — run `detect` first", file=sys.stderr)
         return 1
     n_corners = cfg.board_cols * cfg.board_rows
     pts = gather_calibration_points(proj, cam_ids, set_ids, n_corners)
@@ -114,7 +156,7 @@ def cmd_refraction(args):
     cams = [proj.cameras[c].to_camera() for c in cam_ids]
     p1, p2, v1, v2 = gather_correspondences(proj, cam_ids, set_ids)
     if len(p1) == 0:
-        print("no correspondences — detect and match features first",
+        print("no correspondences — run `detect` + `match` first",
               file=sys.stderr)
         return 1
     print(f"{len(p1)} correspondences")
@@ -143,8 +185,11 @@ def cmd_stereo(args):
     from .data.ply import write_ply
     from .data.project_io import load_project
     from .device import resolve_device
+    from .runtime.checkpoint import DepthCheckpoint
+    from .runtime.trace import metric as trace_metric
     from .stereo.multiview import mvs_depth_maps, depth_maps_to_ply
     from .stereo.twoview import compute_depth_maps
+    from .viz.render import save_depth_image
 
     device = resolve_device(args.device)
     proj = load_project(args.project)
@@ -173,15 +218,20 @@ def cmd_stereo(args):
             device=device)
         depths = np.stack([res.depth_left.cpu().numpy(),
                            res.depth_right.cpu().numpy()])
+        style = "twoview"
     else:
         cfg = MultiViewConfig(min_depth=args.min_depth,
                               max_depth=args.max_depth,
                               num_depth_levels=args.depth_levels,
                               cross_check_threshold=args.cross_check,
                               image_scale=args.scale, use_mrf=args.mrf)
+        ckpt = (DepthCheckpoint(os.path.join(outdir, "checkpoint"), cfg)
+                if args.resume else None)
         depths = mvs_depth_maps(
             np.stack([i.rgb for i in imgs]), np.stack([i.mask for i in imgs]),
-            cams, cfg, method=args.method, device=device).cpu().numpy()
+            cams, cfg, method=args.method, checkpoint=ckpt,
+            view_ids=cam_ids, device=device).cpu().numpy()
+        style = "mvs"
 
     if args.save_npz:
         np.savez_compressed(args.save_npz, depths=depths,
@@ -189,8 +239,11 @@ def cmd_stereo(args):
         print(f"wrote raw depths to {args.save_npz}")
     for cid, d in zip(cam_ids, depths):
         have = np.isfinite(d) & (d > 0)
+        trace_metric(f"stereo/coverage/{cid}", 100.0 * have.mean(), "%")
         print(f"{cid}: {100.0 * have.mean():.1f}% of pixels have depth "
               "hypotheses")
+        save_depth_image(d, os.path.join(outdir, f"depth_{cid}.png"),
+                         args.min_depth, args.max_depth, style=style)
     if args.two_view:
         return 0
 
@@ -206,36 +259,66 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="stereoreconstruction_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    def common(sp, writes=True):
+        """The project, the tracing options and, for a verb that writes,
+        -o and --device."""
+        sp.add_argument("project")
+        sp.add_argument("--trace", metavar="JSON", nargs="?", const="-",
+                        default=None,
+                        help="print a stage-timer/metric summary to stderr "
+                             "on exit; with a path, also dump structured "
+                             "JSON there")
+        sp.add_argument("--device-trace", metavar="LOGDIR", default=None,
+                        help="capture a torch.profiler trace of the whole "
+                             "command into LOGDIR/trace.json (Chrome "
+                             "trace format)")
+        if writes:
+            sp.add_argument("-o", "--output")
+            sp.add_argument("--device", default=None,
+                            help="torch device (default: cuda)")
+
     sp = sub.add_parser("info")
-    sp.add_argument("project")
+    common(sp, writes=False)
     sp.set_defaults(fn=cmd_info)
 
+    sp = sub.add_parser("detect")
+    common(sp)
+    sp.add_argument("--image-set", action="append", default=None,
+                    help="image sets to detect in (repeatable; default: "
+                         "all)")
+    sp.add_argument("--kind", choices=("checkerboard", "surf"),
+                    default="checkerboard")
+    sp.add_argument("--rows", type=int, default=10,
+                    help="board squares down (inner corners: rows - 1)")
+    sp.add_argument("--cols", type=int, default=12,
+                    help="board squares across (inner corners: cols - 1)")
+    sp.add_argument("--threshold", type=float, default=100.0,
+                    help="SURF Hessian threshold")
+    sp.set_defaults(fn=cmd_detect)
+
+    sp = sub.add_parser("match")
+    common(sp)
+    sp.set_defaults(fn=cmd_match)
+
     sp = sub.add_parser("calibrate")
-    sp.add_argument("project")
-    sp.add_argument("-o", "--output")
+    common(sp)
     sp.add_argument("--rows", type=int, default=10,
                     help="board squares down (inner corners: rows - 1)")
     sp.add_argument("--cols", type=int, default=12,
                     help="board squares across (inner corners: cols - 1)")
     sp.add_argument("--cell-size", type=float, default=11.0)
     sp.add_argument("--bundle-adjust", action="store_true")
-    sp.add_argument("--device", default=None,
-                    help="torch device (default: cuda)")
     sp.set_defaults(fn=cmd_calibrate)
 
     sp = sub.add_parser("refraction")
-    sp.add_argument("project")
-    sp.add_argument("-o", "--output")
+    common(sp)
     sp.add_argument("--image-set", action="append", default=None,
                     help="image sets whose correspondences to use "
                          "(repeatable; default: all)")
-    sp.add_argument("--device", default=None,
-                    help="torch device (default: cuda)")
     sp.set_defaults(fn=cmd_refraction)
 
     sp = sub.add_parser("stereo")
-    sp.add_argument("project")
-    sp.add_argument("-o", "--output")
+    common(sp)
     sp.add_argument("--image-set", required=True)
     sp.add_argument("--cameras", nargs="*", default=None)
     sp.add_argument("--min-depth", type=float, default=300.0)
@@ -252,20 +335,33 @@ def main(argv=None):
     sp.add_argument("--save-npz", metavar="FILE",
                     help="also write the raw depth maps (npz: depths "
                          "[V, H, W] + cam_ids)")
-    sp.add_argument("--device", default=None,
-                    help="torch device (default: cuda)")
     sp.add_argument("--two-view", action="store_true",
                     help="two-view engine on the first two cameras "
                          "(depth maps only, no PLY)")
     sp.add_argument("--mrf", action="store_true",
                     help="MRF flow: top-K hypotheses + TRW-S (multi-view) "
                          "or BP over the cost volume (--two-view)")
-    sp.add_argument("--resume", action="store_true")
+    sp.add_argument("--resume", action="store_true",
+                    help="checkpoint each view's depth map under "
+                         "<output>/checkpoint/ and skip views already "
+                         "computed with the same config (multi-view)")
     sp.add_argument("--shard", default=None)
     sp.set_defaults(fn=cmd_stereo)
 
     args = p.parse_args(argv)
-    return args.fn(args)
+
+    import contextlib
+    from .runtime import trace as tracing
+    with contextlib.ExitStack() as stack:
+        if args.device_trace:
+            stack.enter_context(tracing.device_trace(args.device_trace))
+        with tracing.trace(args.cmd):
+            rc = args.fn(args) or 0
+    if args.trace is not None:
+        print(tracing.summary(), file=sys.stderr)
+        if args.trace != "-":
+            tracing.get_tracer().dump_json(args.trace)
+    return rc
 
 
 if __name__ == "__main__":

@@ -19,6 +19,10 @@ profile:
 - ``device_trace(logdir)`` — a ``torch.profiler`` trace (host and, with
   CUDA, device activity) of a region, written to ``logdir`` as a Chrome
   trace.
+- ``device_op_table(logdir)`` — the device's name and each CUDA kernel's
+  total seconds and launches from that trace (the counterpart of the JAX
+  package's ``runtime/xplane.py device_op_table``, which decodes a TPU
+  XSpace profile).
 - ``report()``/``dump_json()``/``summary()`` — structured export.
 
 All state lives in a ``Tracer``; a process-global default instance backs
@@ -190,6 +194,29 @@ def device_trace(logdir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def device_op_table(logdir: str):
+    """Aggregate device time by kernel from the Chrome trace that
+    ``device_trace(logdir)`` wrote.
+
+    Returns (device name, {kernel name: (total seconds, launches)}) over
+    the trace's CUDA kernels (its events of category "kernel"; copies and
+    host ops are left out).  The device name is the trace's first device,
+    or None when it recorded no device (a run on the CPU), and then the
+    table is empty."""
+    import os
+
+    with open(os.path.join(logdir, "trace.json")) as f:
+        data = json.load(f)
+    devices = data.get("deviceProperties") or []
+    table: Dict[str, tuple] = {}
+    for ev in data.get("traceEvents", []):
+        if ev.get("ph") != "X" or ev.get("cat") != "kernel":
+            continue
+        sec, n = table.get(ev["name"], (0.0, 0))
+        table[ev["name"]] = (sec + float(ev.get("dur", 0.0)) * 1e-6, n + 1)
+    return (devices[0].get("name") if devices else None), table
 
 
 # -- process-global default tracer -----------------------------------

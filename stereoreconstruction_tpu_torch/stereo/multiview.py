@@ -44,6 +44,7 @@ from ..ops.cuda_mvs import (cuda_mvs_topk, cuda_mvs_wta, mvs_topk_slab,
 from ..ops.cuda_sample import cuda_sample_nearest
 from ..ops.ncc import _left_windows, mvs_cost_plane
 from ..ops.weights import compute_weights
+from ..runtime.trace import trace
 from .depthsweep import (depth_labels_uniform, match_points, pixel_rays,
                          point_from_depth)
 from .mrf import labels_to_depth, trws_optimize
@@ -351,7 +352,9 @@ def mvs_cross_check_all(depths_all, cams_all: Camera, cfg: MultiViewConfig,
 def mvs_depth_maps(rgbs, masks, cams: Sequence[Camera],
                    cfg: MultiViewConfig, *, cross_check=True,
                    enable_refraction=True, enable_distortion=True,
-                   method: str = "auto", dtype=torch.float32, device=None):
+                   method: str = "auto", dtype=torch.float32,
+                   checkpoint=None, view_ids: Sequence[str] = None,
+                   device=None):
     """Full MultiViewStereo::runTask flow: the WTA path, or with
     ``cfg.use_mrf`` the USE_MRF flow (per view the top-K hypothesis volume,
     ``trws_optimize`` with ``cfg.mrf_max_iters`` and ``labels_to_depth``,
@@ -361,6 +364,13 @@ def mvs_depth_maps(rgbs, masks, cams: Sequence[Camera],
     Cameras (any device and dtype; the sweep casts them to ``dtype``).
     Returns depths [V, H, W] on ``device`` (CUDA unless the caller names
     another).
+
+    checkpoint: optional ``runtime.checkpoint.DepthCheckpoint``.  A view
+    whose initial estimate (before the cross-check) the store holds for
+    this config and shape is loaded instead of swept; every other view's
+    estimate is saved as it completes, so an interrupted run resumes
+    mid-task.  The cross-check then runs on the stacked maps.  view_ids
+    names the views in the store (defaults to the index).
     """
     dev = resolve_device(device)
     cams_all, cams_nbr, nbr_idx, nbr_valid, refr, dist = \
@@ -372,29 +382,42 @@ def mvs_depth_maps(rgbs, masks, cams: Sequence[Camera],
     masks = torch.as_tensor(masks, dtype=torch.bool, device=dev)
     grays = (0.11 * rgbs[..., 0] + 0.59 * rgbs[..., 1]
              + 0.3 * rgbs[..., 2])
+    if view_ids is None:
+        view_ids = [str(i) for i in range(len(cams))]
 
     depths = []
     for i in range(len(cams)):
-        nbr = torch.as_tensor(nbr_idx[i], device=dev)
-        est = mvs_initial_estimate_oneview(
-            rgbs[i], grays[i], masks[i], grays[nbr], masks[nbr],
-            camera_at(cams_all, i), camera_at(cams_nbr, i), cfg,
-            enable_refraction=enable_refraction,
-            enable_distortion=enable_distortion, method=method,
-            nbr_valid=nbr_valid[i], with_topk=cfg.use_mrf, device=dev)
-        if cfg.use_mrf:
-            top_ncc, top_depth = est
-            res = trws_optimize(top_ncc, top_depth, cfg,
-                                max_iters=cfg.mrf_max_iters)
-            est = torch.where(masks[i], labels_to_depth(res.labels,
-                                                        top_depth),
-                              torch.inf)
+        if checkpoint is not None:
+            saved = checkpoint.load(view_ids[i],
+                                    expect_shape=tuple(grays.shape[1:]))
+            if saved is not None:
+                depths.append(torch.as_tensor(saved, dtype=dtype,
+                                              device=dev))
+                continue
+        with trace(f"mvs/view{i}/initial_estimate"):
+            nbr = torch.as_tensor(nbr_idx[i], device=dev)
+            est = mvs_initial_estimate_oneview(
+                rgbs[i], grays[i], masks[i], grays[nbr], masks[nbr],
+                camera_at(cams_all, i), camera_at(cams_nbr, i), cfg,
+                enable_refraction=enable_refraction,
+                enable_distortion=enable_distortion, method=method,
+                nbr_valid=nbr_valid[i], with_topk=cfg.use_mrf, device=dev)
+            if cfg.use_mrf:
+                top_ncc, top_depth = est
+                res = trws_optimize(top_ncc, top_depth, cfg,
+                                    max_iters=cfg.mrf_max_iters)
+                est = torch.where(masks[i], labels_to_depth(res.labels,
+                                                            top_depth),
+                                  torch.inf)
+            if checkpoint is not None:
+                checkpoint.save(view_ids[i], est.cpu().numpy())
         depths.append(est)
     depths = torch.stack(depths)
     if cross_check:
-        depths = mvs_cross_check_all(depths, cams_all, cfg,
-                                     enable_refraction=enable_refraction,
-                                     enable_distortion=enable_distortion)
+        with trace("mvs/cross_check"):
+            depths = mvs_cross_check_all(
+                depths, cams_all, cfg, enable_refraction=enable_refraction,
+                enable_distortion=enable_distortion)
     return depths
 
 

@@ -47,6 +47,7 @@ from ..ops.ncc import _left_windows, twoview_cost_plane
 from ..ops.ncc_fast import COORD_SENTINEL
 from ..ops.sampling import sample_valid
 from ..ops.weights import compute_weights
+from ..runtime.trace import trace
 from .depthsweep import (depth_labels_twoview, match_points, pixel_rays,
                          point_from_depth)
 from .mrf import twoview_bp
@@ -340,13 +341,18 @@ def compute_depth_maps(rgb_l, mask_l, rgb_r, mask_r, cam_l: Camera,
         enable_distortion=enable_distortion and (
             _host_distorted(cam_l) or _host_distorted(cam_r)))
 
-    depth_l = compute_depth_map_oneview(
-        rgb_l, gray_l, mask_l, gray_r, mask_r, cam_l, cam_r, cfg,
-        method=method, use_mrf=use_mrf, device=dev, **kw)
-    depth_r = compute_depth_map_oneview(
-        rgb_r, gray_r, mask_r, gray_l, mask_l, cam_r, cam_l, cfg,
-        method=method, use_mrf=use_mrf, device=dev, **kw)
+    # stage timers, as the JAX package's (on CUDA they time the host's
+    # dispatch; runtime.trace.device_trace gives the device's time)
+    with trace("twoview/left"):
+        depth_l = compute_depth_map_oneview(
+            rgb_l, gray_l, mask_l, gray_r, mask_r, cam_l, cam_r, cfg,
+            method=method, use_mrf=use_mrf, device=dev, **kw)
+    with trace("twoview/right"):
+        depth_r = compute_depth_map_oneview(
+            rgb_r, gray_r, mask_r, gray_l, mask_l, cam_r, cam_l, cfg,
+            method=method, use_mrf=use_mrf, device=dev, **kw)
     if cross_check:
-        depth_l, depth_r = cross_check_pair(depth_l, depth_r, cam_l, cam_r,
-                                            cfg, **kw)
+        with trace("twoview/cross_check"):
+            depth_l, depth_r = cross_check_pair(depth_l, depth_r, cam_l,
+                                                cam_r, cfg, **kw)
     return TwoViewResult(depth_left=depth_l, depth_right=depth_r)

@@ -1,8 +1,13 @@
-"""The port's ``cli stereo`` on a synthetic refractive project with PNGs:
-project XML -> depth maps -> PLY (multi-view) or depth maps (``--two-view``)
-on the CPU, checked against the library calls on the same inputs.  The PLY
-holds 6 significant digits (the reference's ``%g`` layout), hence rtol 1e-5
-on the points."""
+"""The port's CLI on the CPU.
+
+``stereo`` on a synthetic refractive project with PNGs: project XML ->
+depth maps -> PLY (multi-view) or depth maps (``--two-view``), checked
+against the library calls on the same inputs; its depth PNGs against the
+JAX package's ``save_depth_image`` bytes, its ``--trace`` JSON, and a
+``--resume`` run bit-equal to the first.  The PLY holds 6 significant
+digits (the reference's ``%g`` layout), hence rtol 1e-5 on the points.
+``detect -> match -> calibrate`` on ``test_cli_workflow.py``'s rendered
+boards, and ``calibrate``/``refraction`` against the JAX package's verbs."""
 
 import os
 
@@ -24,6 +29,7 @@ from stereoreconstruction_tpu_torch.stereo.multiview import (
 from stereoreconstruction_tpu_torch.stereo.twoview import compute_depth_maps
 
 from synth import converging_rig, render_scene
+from test_cli_workflow import synthetic_project  # noqa: F401 (fixture)
 
 torch.set_num_threads(1)
 
@@ -156,13 +162,127 @@ def test_cli_two_view_mrf_writes_library_depths(project, capsys):
     assert np.isfinite(want).any()
 
 
-@pytest.mark.parametrize("flag", [["--resume"], ["--shard", "depth"]])
+@pytest.mark.parametrize("flag", [["--shard", "depth"]])
 def test_cli_stereo_refuses_unported_options(project, capsys, flag):
     path = str(project / "p.xml")
     assert cli.main(["stereo", path, "-o", str(project / "x")] + ARGS
                     + flag) != 0
     assert "not ported" in capsys.readouterr().err
     assert not os.path.exists(project / "x")
+
+
+def _jax_png(tmp, d, style):
+    from stereoreconstruction_tpu.viz.render import save_depth_image
+    path = tmp / f"want_{style}.png"
+    save_depth_image(d, str(path), 40.0, 80.0, style=style)
+    return path.read_bytes()
+
+
+def test_cli_stereo_resume_writes_pngs_and_trace(project, tmp_path):
+    """``stereo --resume --trace JSON``: a depth PNG a view, byte-equal to
+    the JAX package's rendering of the same map; the trace holds each
+    view's initial-estimate stage, the cross-check and the coverage
+    metrics; a second ``--resume`` run loads every view from
+    ``<output>/checkpoint`` (no initial-estimate stage) and writes the same
+    depths bit for bit."""
+    import json
+
+    from stereoreconstruction_tpu_torch.runtime import trace as tracing
+
+    path = str(project / "p.xml")
+    out = project / "out_resume"
+    runs = []
+    for k in range(2):
+        tracing.reset()
+        npz, tr = tmp_path / f"d{k}.npz", tmp_path / f"t{k}.json"
+        assert cli.main(["stereo", path, "-o", str(out), "--save-npz",
+                         str(npz), "--resume", "--trace", str(tr)]
+                        + ARGS) == 0
+        runs.append((np.load(npz)["depths"], json.loads(tr.read_text())))
+    (d0, t0), (d1, t1) = runs
+    np.testing.assert_array_equal(d1, d0)
+    ids = ["cam0", "cam1", "cam2"]
+    for i, cid in enumerate(ids):
+        assert (out / "checkpoint" / f"depth_{cid}.npz").exists()
+        assert (out / f"depth_{cid}.png").read_bytes() == \
+            _jax_png(tmp_path, d0[i], "mvs")
+        assert f"stereo/mvs/view{i}/initial_estimate" in t0["stages"]
+    assert not any("initial_estimate" in k for k in t1["stages"])
+    for t in (t0, t1):
+        assert "stereo/mvs/cross_check" in t["stages"]
+        cov = {m["name"]: m["value"] for m in t["metrics"]}
+        for i, cid in enumerate(ids):
+            have = np.isfinite(d0[i]) & (d0[i] > 0)
+            assert cov[f"stereo/coverage/{cid}"] == pytest.approx(
+                100.0 * have.mean())
+
+
+def test_cli_two_view_pngs_trace_and_device_trace(project, tmp_path):
+    """``stereo --two-view``: HSV depth PNGs byte-equal to the JAX
+    package's, the two-view stages in the trace, ``--resume`` without
+    effect (no checkpoint), and ``--device-trace`` writing a Chrome trace
+    that ``device_op_table`` reads (no device on the CPU)."""
+    import json
+
+    from stereoreconstruction_tpu_torch.runtime import trace as tracing
+
+    path = str(project / "p.xml")
+    out = project / "out_two_png"
+    npz, tr = tmp_path / "two.npz", tmp_path / "t.json"
+    tracing.reset()
+    assert cli.main(["stereo", path, "-o", str(out), "--save-npz", str(npz),
+                     "--two-view", "--resume", "--trace", str(tr),
+                     "--device-trace", str(tmp_path / "prof")]
+                    + ARGS + ["--depth-levels", "6"]) == 0
+    depths = np.load(npz)["depths"]
+    for i, cid in enumerate(("cam0", "cam1")):
+        assert (out / f"depth_{cid}.png").read_bytes() == \
+            _jax_png(tmp_path, depths[i], "twoview")
+    assert not (out / "checkpoint").exists()
+    stages = json.loads(tr.read_text())["stages"]
+    assert {"stereo/twoview/left", "stereo/twoview/right",
+            "stereo/twoview/cross_check"} <= set(stages)
+    assert tracing.device_op_table(str(tmp_path / "prof")) == (None, {})
+
+
+def test_cli_detect_match_calibrate(synthetic_project, tmp_path):
+    """``detect -> match -> calibrate`` through the port's CLI (--device
+    cpu) on ``test_cli_workflow.py``'s rendered boards: the features and
+    correspondences equal the JAX package's (numpy) library calls on the
+    same project, and the focal lengths land within 5% of the truth, the
+    bound of ``test_cli_workflow.py`` (its boards have a row and a column of
+    squares more than the corners asked for, so a detected grid may sit a
+    corner off and the calibration prunes it).  The same features and
+    correspondences give the JAX package's cameras:
+    ``test_cli_calibrate_and_refraction_match_jax`` holds the calibration
+    verbs to each other."""
+    from stereoreconstruction_tpu.data import project_io as jio
+    from stereoreconstruction_tpu.features import detect as jdetect
+    from test_cli_workflow import COLS, ROWS
+
+    tmp, Ks = synthetic_project
+    src, port = str(tmp / "p.xml"), str(tmp_path / "port.xml")
+    board = ["--rows", str(ROWS + 1), "--cols", str(COLS + 1)]
+    assert cli.main(["detect", src, "-o", port, "--device", "cpu"]
+                    + board) == 0
+    assert cli.main(["match", port, "--device", "cpu"]) == 0
+    assert cli.main(["calibrate", port, "--cell-size", "11", "--device",
+                     "cpu"] + board) == 0
+
+    want = jio.load_project(src)
+    assert jdetect.detect_checkerboards(want, cols=COLS, rows=ROWS) >= 8
+    jdetect.find_all_correspondences(want)
+    got = load_project(port)
+    assert sorted(got.features) == sorted(want.features)
+    for key, feats in want.features.items():
+        np.testing.assert_array_equal(
+            [(f.x, f.y, f.corner_index) for f in got.features[key]],
+            [(f.x, f.y, f.corner_index) for f in feats])
+    assert got.correspondences == want.correspondences
+    assert len(got.correspondences) >= 3
+    for i in range(2):
+        K = got.cameras[f"cam{i}"].decompose()[0]
+        assert abs(K[0, 0] - Ks[i][0, 0]) / Ks[i][0, 0] < 0.05
 
 
 # --------------------------------------------------------------------------

@@ -37,7 +37,12 @@ def test_importing_every_module_loads_no_jax():
             "stereoreconstruction_tpu_torch.calib.refraction",
             "stereoreconstruction_tpu_torch.calib.badata",
             "stereoreconstruction_tpu_torch.calib.floydwarshall",
-            "stereoreconstruction_tpu_torch.features.detect"} <= set(mods)
+            "stereoreconstruction_tpu_torch.features.detect",
+            "stereoreconstruction_tpu_torch.features.checkerboard",
+            "stereoreconstruction_tpu_torch.features.matching",
+            "stereoreconstruction_tpu_torch.features.surf",
+            "stereoreconstruction_tpu_torch.runtime.checkpoint",
+            "stereoreconstruction_tpu_torch.viz.render"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
