@@ -114,12 +114,34 @@ Phases; any failure raises, and the script exits non-zero:
     against the analytic depth), the second loading every view (depths
     bit-equal, no launch of kernels 1 and 2, kernel 5 launched); each
     verb's seconds;
-22. print the kernel table as one JSON line (kernel 1 has a row for each
-    radius; each row's launches are summed over the main paths that run
-    it, each read right after its own run; the instances of phase 16 have
-    rows of their own, timed on their gates' inputs, with 0 launches;
-    phases 17-21 add none), then the result line {"ok": true, "device":
-    {...}} last.
+22. the SAD two-view path and the remaining verbs:
+    compute_depth_maps(cost="sad") on views 0 and 1 at the two-view cell's
+    shape (kernel 1 at r = 5 and kernel 5 launched, kernels 3 and 4 not;
+    the median |depth error| within a label step, the coverage stated);
+    four labels' SAD cost planes of view 0 on the card against the same
+    call on the CPU (relative 1e-4); fill_gaps then weighted_median_fill
+    with kernel 1's [11, 11, 384, 512] weights on the SAD map (no gap of
+    gap_width_threshold or less left, the card bit-equal to the CPU);
+    epipolar_curve for an 8x8 grid of view 0's pixels, 100 samples each
+    (the true match within 0.5 px of the curve, the card's curve within
+    1e-9 px of the CPU's); then through the port's CLI: ``hdr`` (5
+    exposures at 1024x768 through a known response, EXR and RGBE read
+    back, the radiance within tests/test_hdr.py's tolerance),
+    ``convert-raw`` (the rig's 8 full-size renders as GRBG mosaics and a
+    wrong-sized file: 8 converted, es PSNR >= 25 dB), ``pmvs`` (each P
+    the project's), ``layout``, ``cloud`` with and without ``--splats``
+    on phase 5's PLY (800x800; the share of non-background pixels
+    bounded; the layout and the scatter draw with matplotlib, and where it
+    is not installed both must exit 2 and write nothing), ``edit`` and
+    ``info`` (an interface set and cleared), and a
+    TaskRunner job on the native pool (its progress, and a cancellation);
+    each step's seconds;
+23. print the kernel table as one JSON line (kernel 1 has a row for each
+    radius; each row's launches are summed over the paths that run it,
+    each read right after its own run: the four main paths and phase 22's
+    SAD path; the instances of phase 16 have rows of their own, timed on
+    their gates' inputs, with 0 launches; phases 17-21 add none), then
+    the result line {"ok": true, "device": {...}} last.
 
 A kernel's time ("ms") is its device time from torch.profiler, the mean of
 10 launches each after an L2 flush; the event time of the whole wrapper
@@ -208,6 +230,12 @@ def _pixel_rays(cam, h, w, scale):
     (Camera::unproject with Snell's law, no lens distortion)."""
     ys, xs = np.meshgrid((np.arange(h) + 0.5) / scale,
                          (np.arange(w) + 0.5) / scale, indexing="ij")
+    return rays_at(cam, xs, ys)
+
+
+def rays_at(cam, xs, ys):
+    """World rays (origins, directions [..., 3]) through full-size pixel
+    coordinates, refracted at the port."""
     d = np.stack([xs, ys, np.ones_like(xs)], -1) @ np.linalg.inv(cam["K"]).T
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     n, nrm, pd = cam["refr_index"], cam["normal"], cam["plane_dist"]
@@ -668,6 +696,7 @@ PATH_KERNELS = {
                 "sample_nearest"),
     "twoview_mrf": ("geodesic_weights", "warp_bilinear", "cost_volume",
                     "sample_nearest"),
+    "twoview_sad": ("geodesic_weights", "sample_nearest"),
 }
 
 
@@ -1340,7 +1369,8 @@ def check_sampler(device, sampled, reps, plain_reps):
                 replaces="stereoreconstruction_tpu/ops/pallas_sample.py:134",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=by, library_ms=library_ms,
-                paths=("mvs", "mvs_mrf", "twoview", "twoview_mrf"))
+                paths=("mvs", "mvs_mrf", "twoview", "twoview_mrf",
+                       "twoview_sad"))
 
 
 def profile_shimmed(device, title, module, stages, call):
@@ -2199,17 +2229,12 @@ def workflow_projects(device, tmp, scene_rgbs, cams, poses):
         CameraRecord, ImageRecord, ImageSetRecord, ProjectData, save_project)
 
     boards = ProjectData(path=os.path.join(tmp, "boards.xml"))
-    scene = ProjectData(path=os.path.join(tmp, "scene.xml"))
     for i, cam in enumerate(cams):
         cid = f"cam{i}"
         K = cam["K"]
         boards.cameras[cid] = CameraRecord(
             id=cid, name=cid, P=K @ np.hstack([np.eye(3), np.zeros((3, 1))]),
             dist=np.zeros(5))
-        scene.cameras[cid] = CameraRecord(
-            id=cid, name=cid, P=K @ np.hstack([cam["R"], cam["t"][:, None]]),
-            dist=np.zeros(5), refr_px=K[0, 2], refr_py=K[1, 2],
-            refr_dist=cam["plane_dist"], refr_index=cam["refr_index"])
     for s, (Rb, tb) in enumerate(poses):
         sid = f"b{s:02d}"
         iset = ImageSetRecord(id=sid, name=sid, root=tmp)
@@ -2218,21 +2243,40 @@ def workflow_projects(device, tmp, scene_rgbs, cams, poses):
             Image.fromarray(render_board(device, cam, Rb, tb)).save(fn)
             iset.images.append(ImageRecord(file=fn, camera_id=f"cam{i}"))
         boards.image_sets[sid] = iset
+    save_project(boards, boards.path)
+    return boards.path, scene_project(tmp, scene_rgbs, cams)
+
+
+def scene_project(tmp, scene_rgbs, cams):
+    """Write scene.xml under ``tmp`` with the port's project_io: the main
+    path's refractive cameras and the rig's full-size views as image set
+    "scene"; returns its path."""
+    from PIL import Image
+
+    from stereoreconstruction_tpu_torch.data.project_io import (
+        CameraRecord, ImageRecord, ImageSetRecord, ProjectData, save_project)
+
+    scene = ProjectData(path=os.path.join(tmp, "scene.xml"))
     iset = ImageSetRecord(id="scene", name="scene", root=tmp)
-    for i, rgb in enumerate(scene_rgbs):
+    for i, (cam, rgb) in enumerate(zip(cams, scene_rgbs)):
+        cid = f"cam{i}"
+        K = cam["K"]
+        scene.cameras[cid] = CameraRecord(
+            id=cid, name=cid, P=K @ np.hstack([cam["R"], cam["t"][:, None]]),
+            dist=np.zeros(5), refr_px=K[0, 2], refr_py=K[1, 2],
+            refr_dist=cam["plane_dist"], refr_index=cam["refr_index"])
         fn = os.path.join(tmp, f"scene_cam{i}.png")
         Image.fromarray(np.round(rgb).astype(np.uint8)).save(fn)
-        iset.images.append(ImageRecord(file=fn, camera_id=f"cam{i}"))
+        iset.images.append(ImageRecord(file=fn, camera_id=cid))
     scene.image_sets["scene"] = iset
-    save_project(boards, boards.path)
     save_project(scene, scene.path)
-    return boards.path, scene.path
+    return scene.path
 
 
-def cli_run(device, argv):
+def cli_run(device, argv, expect=0):
     """``cli.main(argv)`` on the host clock with the tracer reset and every
-    kernel's count set to 0 just before; fails unless it returns 0.
-    Returns (seconds, {kernel: launches})."""
+    kernel's count set to 0 just before; fails unless it returns
+    ``expect``.  Returns (seconds, {kernel: launches})."""
     from stereoreconstruction_tpu_torch import cli
     from stereoreconstruction_tpu_torch.runtime import trace as tracing
 
@@ -2245,8 +2289,8 @@ def cli_run(device, argv):
     rc = cli.main(argv)
     torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
-    if rc != 0:
-        raise AssertionError(f"cli {argv[0]} returned {rc}")
+    if rc != expect:
+        raise AssertionError(f"cli {argv[0]} returned {rc}, not {expect}")
     return wall, {k: f.launches for k, f in counters.items()}
 
 
@@ -2392,6 +2436,482 @@ def workflow_phase(device, scene_rgbs, true_depth):
     return {k: round(v, 3) for k, v in times.items()}
 
 
+# --------------------------------------------------------------------------
+# Phase 22: the SAD two-view path, post-processing, epipolar curves, and
+# the remaining verbs through the port's CLI
+# --------------------------------------------------------------------------
+
+SAD_MIN_COVERAGE = 0.25     # least share of pixels with a SAD depth
+                            # (measured 0.33 on each view, PERF.md §5)
+SAD_PLANE_TOL = 1e-4        # card - CPU SAD costs, relative
+CLASSIFY_MAX_DIFF = 1e-3    # share of pixels whose classes may differ
+SAD_LABELS = (0, 33, 66, 99)
+EPI_GRID = 8                # pixels of view 0 on a side of the grid
+EPI_SAMPLES = 100
+EPI_TOL_PX = 0.5            # the curve against the true match
+EPI_CPU_TOL_PX = 1e-9       # the card's curve against the CPU's
+HDR_EXPOSURES = 5
+HDR_REL_MEDIAN = 0.1        # tests/test_hdr.py's tolerance on the radiance
+RAW_MIN_PSNR = 25.0         # es demosaic of a render's mosaic, dB
+CLOUD_SHARE = (0.02, 0.98)  # share of non-background pixels of a render
+
+
+def classify_card_vs_cpu(device, res, cams, cfg):
+    """cross_check_classify of the SAD left map against the right one in
+    float32 on the card (its depth_b read goes through kernel 5) and on the
+    CPU, from the same maps; a float64 call on the card must raise.
+    Returns the count of pixels where either bool map differs, and the
+    card's count of checkable pixels."""
+    from stereoreconstruction_tpu_torch.stereo.twoview import (
+        cross_check_classify)
+
+    args = (cams[0], cams[1], cfg.image_scale, cfg.inconsistency_thresh)
+    card = cross_check_classify(res.depth_left, res.depth_right, *args,
+                                device=device)
+    cpu = cross_check_classify(res.depth_left.cpu(), res.depth_right.cpu(),
+                               *args, device="cpu")
+    try:
+        cross_check_classify(res.depth_left.double(), res.depth_right,
+                             *args, device=device)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("cross_check_classify took float64 on the card")
+    n_diff = sum(int((c.cpu() != p).sum()) for c, p in zip(card, cpu))
+    n_checkable = int(card[1].sum())
+    if n_checkable < res.depth_left.numel() // 10:
+        raise AssertionError("cross_check_classify found too few checkable "
+                             "pixels")
+    return n_diff, n_checkable
+
+
+def sad_planes_card_vs_cpu(device, rig2):
+    """SAD_LABELS' cost planes of view 0 (sad_cost_plane at the two-view
+    cell's shape, radius 5) on the card and on the CPU, from the same
+    inputs (kernel 1's weights and the card's match coordinates).  Returns
+    (max relative difference of finite costs, the share bit-equal)."""
+    from stereoreconstruction_tpu_torch.ops.cuda_weights import (
+        cuda_geodesic_weights)
+    from stereoreconstruction_tpu_torch.ops.ncc import (_left_windows,
+                                                        sad_cost_plane)
+    from stereoreconstruction_tpu_torch.stereo import twoview
+
+    cams, cfg, rgbs, masks = rig2
+    r = cfg.window_radius
+    rgb = torch.as_tensor(rgbs[:2], device=device)
+    gray = 0.11 * rgb[..., 0] + 0.59 * rgb[..., 1] + 0.3 * rgb[..., 2]
+    mask = torch.as_tensor(masks[:2], device=device)
+    h, w = gray.shape[1:]
+    c0, c1 = (c.to(device, torch.float32) for c in cams)
+    weights = cuda_geodesic_weights(rgb[0].contiguous(), r)
+    depths, match_at = twoview._sweep_geometry(
+        c0, c1, cfg, h, w, torch.float32, enable_refraction=True,
+        enable_distortion=False)
+    kw = dict(radius=r, max_color_diff=cfg.max_color_diff,
+              bad_ret=cfg.bad_ret)
+    worst, same, n = 0.0, 0, 0
+    for d in SAD_LABELS:
+        xy, valid = match_at(depths[d])
+        planes = []
+        for dev in (device, torch.device("cpu")):
+            g = gray.to(dev)
+            left = _left_windows(g[0], mask[0].to(dev), r, use_sample=True)
+            planes.append(sad_cost_plane(
+                g[0], *left, g[1], mask[1].to(dev), weights.to(dev),
+                xy.to(dev), valid.to(dev), **kw).cpu())
+        card, cpu = planes
+        if not torch.equal(torch.isinf(card), torch.isinf(cpu)) or not \
+                torch.equal(card == cfg.bad_ret, cpu == cfg.bad_ret):
+            raise AssertionError(f"SAD plane {d}: card and CPU cost classes "
+                                 "differ")
+        fin = torch.isfinite(cpu)
+        rel = ((card - cpu).abs() / cpu.abs().clamp(min=1.0))[fin]
+        worst = max(worst, float(rel.max()))
+        same += int((card == cpu).sum())
+        n += card.numel()
+    return worst, same / n
+
+
+def inf_runs(d):
+    """The lengths of the runs of +inf along each row of ``d``."""
+    runs = []
+    for row in np.isinf(d) & (d > 0):
+        edges = np.diff(np.concatenate([[0], row.astype(np.int8), [0]]))
+        runs += list(np.flatnonzero(edges == -1) - np.flatnonzero(edges == 1))
+    return runs
+
+
+def true_match(cam, X, xy0, iters=20):
+    """The full-size pixel of ``cam`` whose ray (numpy, refracted at the
+    port) passes through the world point X: Gauss-Newton on the ray's
+    perpendicular offset from X, from ``xy0``."""
+    q = np.asarray(xy0, np.float64)
+
+    def resid(q):
+        o, d = rays_at(cam, np.array(q[0]), np.array(q[1]))
+        v = X - o
+        return v - (v @ d) * d
+
+    for _ in range(iters):
+        f = resid(q)
+        J = np.stack([(resid(q + e) - f) / 1e-4
+                      for e in (np.array([1e-4, 0]), np.array([0, 1e-4]))],
+                     -1)
+        q = q - np.linalg.lstsq(J, f, rcond=None)[0]
+    return q
+
+
+def polyline_distance(pt, xy, valid):
+    """Distance from ``pt`` to the polyline through consecutive valid
+    samples ``xy[valid]``."""
+    p = xy[valid]
+    a, b = p[:-1], p[1:]
+    ab = b - a
+    t = np.clip(((pt - a) * ab).sum(-1) / np.maximum((ab * ab).sum(-1),
+                                                     1e-30), 0, 1)
+    return float(np.min(np.hypot(*(a + t[:, None] * ab - pt).T)))
+
+
+def epipolar_phase(device, cams_np, tcams):
+    """epipolar_curve for an EPI_GRID x EPI_GRID grid of view 0's pixels
+    against view 1, EPI_SAMPLES labels over the depth range, on the card
+    and the CPU.  Returns (worst distance to the true match px, worst card -
+    CPU px, card s, CPU s)."""
+    from stereoreconstruction_tpu_torch.stereo.epipolar import epipolar_curve
+
+    xs = np.linspace(120, FULL_W - 120, EPI_GRID)
+    ys = np.linspace(100, FULL_H - 100, EPI_GRID)
+    worst, worst_cpu, secs = 0.0, 0.0, [0.0, 0.0]
+    for y in ys:
+        for x in xs:
+            curves = []
+            for k, dev in enumerate((device, "cpu")):
+                t0 = time.perf_counter()
+                curves.append(epipolar_curve(
+                    tcams[0], tcams[1], (x, y), MIN_DEPTH, MAX_DEPTH,
+                    EPI_SAMPLES, device=dev))
+                secs[k] += time.perf_counter() - t0
+            card, cpu = curves
+            if not np.array_equal(card.valid, cpu.valid) or \
+                    card.valid.sum() < EPI_SAMPLES // 2:
+                raise AssertionError(f"epipolar curve of ({x}, {y}): "
+                                     "validity differs or is short")
+            worst_cpu = max(worst_cpu, float(np.abs(
+                card.xy[card.valid] - cpu.xy[cpu.valid]).max()))
+            o, d = rays_at(cams_np[0], np.array(x), np.array(y))
+            X = o + ((TARGET_Z - o[2]) / d[2]) * d
+            c1 = cams_np[1]
+            p = c1["K"] @ (c1["R"] @ X + c1["t"])
+            q = true_match(c1, X, p[:2] / p[2])
+            worst = max(worst, polyline_distance(q, card.xy, card.valid))
+    return worst, worst_cpu, secs[0], secs[1]
+
+
+def synth_hdr_stack(rng, h, w, gamma=2.2, n=HDR_EXPOSURES):
+    """tests/test_hdr.py's synth_stack at (h, w): a smooth radiance map and
+    its exposures through the response g(v) = gamma * log(v / 255)."""
+    radiance = rng.uniform(0.02, 1.0, (h, w, 3)) ** 2 * 4.0
+    for _ in range(25):
+        radiance = (radiance + np.roll(radiance, 1, 0)
+                    + np.roll(radiance, 1, 1)
+                    + np.roll(radiance, -1, 0)
+                    + np.roll(radiance, -1, 1)) / 5.0
+    exposures_ms = [31.25 * (2 ** i) for i in range(n)]
+    images = [np.clip(np.round(255.0 * np.clip(radiance * (e / 1000.0), 0, 1)
+                               ** (1 / gamma)), 0, 255)
+              for e in exposures_ms]
+    return images, exposures_ms, radiance
+
+
+def grbg_mosaic(rgb):
+    """The GRBG Bayer mosaic (data/demosaic.py's layout) of an RGB image."""
+    h, w = rgb.shape[:2]
+    ys, xs = np.mgrid[0:h, 0:w]
+    ch = np.where((ys % 2) == (xs % 2), 1, np.where(ys % 2 == 0, 0, 2))
+    return np.take_along_axis(rgb, ch[..., None], -1)[..., 0]
+
+
+def png_share(path, background):
+    """The share of a PNG's pixels that differ from ``background`` (RGB)."""
+    from PIL import Image
+    img = np.asarray(Image.open(path).convert("RGB"))
+    return float((img != np.asarray(background)).any(-1).mean())
+
+
+def verbs_phase(device, rig2, true_depth, scene_rgbs, ply):
+    """Phase 22.  The SAD two-view path (compute_depth_maps with
+    ``cost="sad"``, the two-view cell's shape and defaults),
+    cross_check_classify of its maps and its cost planes on the card and
+    the CPU, fill_gaps + weighted_median_fill on its maps (card against
+    CPU), epipolar curves, then the verbs hdr, convert-raw, pmvs, layout,
+    cloud (with and without --splats, on phase 5's PLY), edit and info
+    through the port's CLI, and a TaskRunner job on the native pool.
+    Returns the launches of the SAD path and each step's seconds."""
+    import contextlib
+    import io
+
+    from PIL import Image
+
+    from stereoreconstruction_tpu_torch.data.formats import (read_exr,
+                                                             read_rgbe)
+    from stereoreconstruction_tpu_torch.data.project_io import (
+        ImageRecord, ImageSetRecord, load_project, save_project)
+    from stereoreconstruction_tpu_torch.ops.cuda_weights import (
+        cuda_geodesic_weights)
+    from stereoreconstruction_tpu_torch.runtime.tasks import (FnTask,
+                                                              TaskRunner)
+    from stereoreconstruction_tpu_torch.stereo.postprocess import (
+        fill_gaps, weighted_median_fill)
+    from stereoreconstruction_tpu_torch.stereo.twoview import (
+        compute_depth_maps)
+
+    print(f"verbs phase on {nvidia_smi_line()}")
+    cams, cfg2, rgbs, masks = rig2
+    cfg = dataclasses.replace(cfg2, cost="sad")
+    times = {}
+
+    # the SAD two-view path
+    res, times["SAD two-view"], launches = counted(
+        device, "twoview_sad",
+        lambda: compute_depth_maps(rgbs[0], masks[0], rgbs[1], masks[1],
+                                   cams[0], cams[1], cfg, device=device))
+    others = {k: f.launches for k, f in kernel_counters().items()}
+    print(f"SAD two-view path: {times['SAD two-view']:.3f} s for both views "
+          f"{tuple(res.depth_left.shape)} with the cross-check; launches "
+          f"{others}")
+    coverages = twoview_report("SAD two-view", res, true_depth, cfg,
+                               SAD_MIN_COVERAGE)
+    if not (others["geodesic_weights"] == 2
+            and others["sample_nearest"] >= 1
+            and others["warp_bilinear"] == 0 and others["cost_wta"] == 0
+            and others["cost_volume"] == 0):
+        raise AssertionError("the SAD path launched the wrong kernels")
+    t0 = time.perf_counter()
+    n_diff, n_checkable = classify_card_vs_cpu(device, res, cams, cfg)
+    times["cross_check_classify card and CPU"] = time.perf_counter() - t0
+    print(f"cross_check_classify of the SAD left map against the right, "
+          f"float32, card against CPU: {n_diff} of {res.depth_left.numel()} "
+          f"pixels differ (tolerance {CLASSIFY_MAX_DIFF} of them); "
+          f"{n_checkable} checkable on the card; float64 on the card "
+          "refused")
+    if n_diff > CLASSIFY_MAX_DIFF * res.depth_left.numel():
+        raise AssertionError("cross_check_classify differs between card and "
+                             "CPU")
+    t0 = time.perf_counter()
+    rel, bit_equal = sad_planes_card_vs_cpu(device, rig2)
+    times["SAD planes card and CPU"] = time.perf_counter() - t0
+    print(f"SAD cost planes {list(SAD_LABELS)} of view 0, card against "
+          f"CPU: max relative |diff| {rel:.3e} (tolerance {SAD_PLANE_TOL}),"
+          f" {bit_equal:.6f} of the costs bit-equal")
+    if rel > SAD_PLANE_TOL:
+        raise AssertionError("SAD cost planes differ between card and CPU")
+
+    # post-processing on the SAD maps: fill_gaps, then the weighted median
+    # with kernel 1's weights of view 0
+    d0 = res.depth_left.cpu().numpy()
+    t0 = time.perf_counter()
+    filled = fill_gaps(d0, cfg.gap_width_threshold)
+    times["fill_gaps (host)"] = time.perf_counter() - t0
+    short = [n for n in inf_runs(filled) if n <= cfg.gap_width_threshold]
+    weights = cuda_geodesic_weights(
+        torch.as_tensor(rgbs[0], device=device).contiguous(),
+        cfg.window_radius)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    med = weighted_median_fill(filled, weights, cfg.min_depth,
+                               cfg.max_depth, device=device)
+    torch.cuda.synchronize(device)
+    times["weighted_median_fill card"] = time.perf_counter() - t0
+    w_cpu = weights.cpu()
+    t0 = time.perf_counter()
+    med_cpu = weighted_median_fill(filled, w_cpu, cfg.min_depth,
+                                   cfg.max_depth, device="cpu")
+    times["weighted_median_fill CPU"] = time.perf_counter() - t0
+    med = med.cpu().numpy()
+    step = twoview_step(cfg)
+    cov, med_err = depth_quality(med, true_depth[0], step)
+    print(f"post-processing view 0: {int(np.isinf(d0).sum())} rejected, "
+          f"fill_gaps (threshold {cfg.gap_width_threshold}) filled "
+          f"{int(np.isinf(d0).sum() - np.isinf(filled).sum())} and left "
+          f"{len(short)} short runs; weighted median on {weights.shape}: "
+          f"coverage {coverages[0]:.4f} -> {cov:.4f}, median |depth error| "
+          f"{med_err:.4f} (step {step:.4f}); card bit-equal to CPU "
+          f"{np.array_equal(med, med_cpu.numpy(), equal_nan=True)}")
+    if short or not np.array_equal(med, med_cpu.numpy(), equal_nan=True):
+        raise AssertionError("post-processing: a short gap is left, or the "
+                             "card's weighted median differs from the CPU's")
+    if not (cov >= coverages[0] and med_err <= step):
+        raise AssertionError("post-processing lost coverage or accuracy")
+    del weights, w_cpu
+
+    # epipolar curves
+    cams_np = converging_rig(N_VIEWS, focal=FOCAL, h=FULL_H, w=FULL_W,
+                             baseline=BASELINE, target_z=TARGET_Z,
+                             refr_index=REFR_INDEX, plane_dist=PORT_DIST)
+    worst, worst_cpu, t_card, t_cpu = epipolar_phase(device, cams_np, cams)
+    times["epipolar card"], times["epipolar CPU"] = t_card, t_cpu
+    print(f"epipolar curves: {EPI_GRID ** 2} pixels of view 0, "
+          f"{EPI_SAMPLES} samples each: farthest true match {worst:.4f} px "
+          f"from its curve (tolerance {EPI_TOL_PX}); card - CPU "
+          f"{worst_cpu:.3e} px; {t_card:.3f} s card, {t_cpu:.3f} s CPU")
+    if worst > EPI_TOL_PX or worst_cpu > EPI_CPU_TOL_PX:
+        raise AssertionError("an epipolar curve misses its true match or "
+                             "differs from the CPU's")
+
+    def verb(argv, label=None, expect=0):
+        """``cli.main(argv)`` with its output captured, returning
+        ``expect``; its seconds go to ``times`` under ``label`` (the verb
+        by default)."""
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            wall, _ = cli_run(device, argv, expect)
+        text = out.getvalue()
+        label = label or f"cli {argv[0]}"
+        print(f"  {label}: {wall:.3f} s; " + text.strip().replace(
+            "\n", " | ")[:300])
+        times[label] = wall
+        return text
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # hdr: 5 exposures at full size through a known response
+        images, exps, radiance = synth_hdr_stack(np.random.default_rng(0),
+                                                 FULL_H, FULL_W)
+        scene = scene_project(tmp, scene_rgbs, cams_np)
+        proj = load_project(scene)
+        iset = ImageSetRecord(id="hdr", name="hdr", root=tmp)
+        for k, (img, e) in enumerate(zip(images, exps)):
+            fn = os.path.join(tmp, f"hdr{k}.png")
+            Image.fromarray(img.astype(np.uint8)).save(fn)
+            iset.images.append(ImageRecord(file=fn, camera_id="cam0",
+                                           is_default=k == 0, exposure=e))
+        proj.image_sets["hdr"] = iset
+        save_project(proj, scene)
+        mask = (radiance > 0.1) & (radiance < 3.0)
+        hdr_rel = []
+        for ext, reader in ((".exr", read_exr), (".hdr", read_rgbe)):
+            out = os.path.join(tmp, f"radiance{ext}")
+            verb(["hdr", scene, "--image-set", "hdr", "--cameras", "cam0",
+                  "-o", out], f"cli hdr {ext}")
+            got = reader(out)
+            scale = np.median(got[mask] / radiance[mask])
+            hdr_rel.append(float(np.median(
+                np.abs(got[mask] / scale - radiance[mask]) / radiance[mask])))
+        print(f"hdr {FULL_W}x{FULL_H}, {HDR_EXPOSURES} exposures: median "
+              f"relative radiance error (EXR, RGBE) {hdr_rel} (tolerance "
+              f"{HDR_REL_MEDIAN})")
+        if max(hdr_rel) >= HDR_REL_MEDIAN:
+            raise AssertionError("hdr radiance is off the truth")
+
+        # convert-raw: the rig's 8 full-size renders as GRBG mosaics
+        raw_dir = os.path.join(tmp, "raw")
+        os.makedirs(os.path.join(raw_dir, "sub"))
+        truth = [np.round(r).astype(np.uint8) for r in scene_rgbs]
+        for i, rgb in enumerate(truth):
+            grbg_mosaic(rgb).tofile(os.path.join(raw_dir, "sub",
+                                                 f"cam{i}.raw"))
+        with open(os.path.join(raw_dir, "wrong.raw"), "wb") as f:
+            f.write(bytes(1000))
+        text = verb(["convert-raw", raw_dir, "--width", str(FULL_W),
+                     "--height", str(FULL_H)])
+        psnr = []
+        for i, rgb in enumerate(truth):
+            got = np.asarray(Image.open(os.path.join(raw_dir, "sub",
+                                                     f"cam{i}.png")))
+            mse = np.mean((got.astype(np.float64) - rgb) ** 2)
+            psnr.append(round(float(10 * np.log10(255.0 ** 2 / mse)), 3))
+        print(f"convert-raw: es PSNR against the renders {psnr} dB (bound "
+              f">= {RAW_MIN_PSNR})")
+        if not ("converted 8 RAW images" in text and min(psnr)
+                >= RAW_MIN_PSNR and not os.path.exists(
+                    os.path.join(raw_dir, "wrong.png"))):
+            raise AssertionError("convert-raw converted the wrong files or "
+                                 "its demosaic is off the renders")
+
+        # pmvs: each matrix is the project's P
+        pmvs = os.path.join(tmp, "pmvs")
+        verb(["pmvs", scene, "--image-set", "scene", "-o", pmvs])
+        proj = load_project(scene)
+        for i in range(N_VIEWS):
+            with open(os.path.join(pmvs, "txt", f"{i:08d}.txt")) as f:
+                rows = f.read().split("\n")
+            P = np.array([[float(v) for v in r.split()] for r in rows[1:4]])
+            if rows[0] != "CONTOUR" or not np.allclose(
+                    P, proj.cameras[f"cam{i}"].P, rtol=1e-9, atol=0):
+                raise AssertionError(f"pmvs wrote the wrong P for cam{i}")
+
+        # layout, and cloud with and without --splats; the layout and the
+        # scatter draw with matplotlib, which the card's machine does not
+        # have: those two verbs must refuse (exit 2) and write nothing
+        # (tests/test_torch_cli.py holds their images to the JAX verbs')
+        for k, (label, argv) in enumerate([("cli layout", ["layout", scene]),
+                                           ("cli cloud", ["cloud", ply])]):
+            out = os.path.join(tmp, f"refused{k}.png")
+            verb(argv + ["-o", out], label + " (refused)", expect=2)
+            if os.path.exists(out):
+                raise AssertionError(f"{label} wrote {out}")
+        out = os.path.join(tmp, "splats.png")
+        verb(["cloud", ply, "--splats", "--size", "800", "-o", out],
+             "cli cloud --splats")
+        share = png_share(out, (0, 0, 0))
+        print(f"splat render: share of non-background pixels {share:.4f} "
+              f"(bounds {CLOUD_SHARE}); layout and the scatter cloud "
+              "refused without matplotlib")
+        if not CLOUD_SHARE[0] <= share <= CLOUD_SHARE[1]:
+            raise AssertionError("the splat render is blank or full")
+
+        # edit: set and clear an interface, read back with info
+        edited = os.path.join(tmp, "edited.xml")
+        verb(["edit", scene, "-o", edited, "--set-interface", "cam3",
+              "500", "380", "2.5", "1.5"], "cli edit (set)")
+        info = verb(["info", edited], "cli info (set)")
+        verb(["edit", edited, "--clear-interface", "cam3"],
+             "cli edit (clear)")
+        info2 = verb(["info", edited], "cli info (cleared)")
+        rec = load_project(edited).cameras["cam3"]
+        if "camera cam3 refractive(n=1.5, d=2.5)" not in info or \
+                "camera cam3 refractive" in info2 or rec.refr_index != 1.0:
+            raise AssertionError("edit did not set and clear the interface")
+
+    # a TaskRunner job on the native pool: demosaic the 8 mosaics with
+    # progress, then a job cancelled while it runs
+    from stereoreconstruction_tpu_torch.data.demosaic import demosaic_es
+    seen = []
+
+    def demosaic_all(ctx):
+        out = []
+        for i, rgb in enumerate(truth):
+            out.append(demosaic_es(grbg_mosaic(rgb)))
+            ctx.progress(i + 1)
+        return out
+
+    def spin(ctx):
+        for _ in range(2000):
+            if ctx.is_cancelled():
+                return "cancelled"
+            time.sleep(0.005)
+        return "finished"
+
+    t0 = time.perf_counter()
+    with TaskRunner(2) as runner:
+        job = runner.submit(FnTask(demosaic_all, "demosaic", len(truth)),
+                            on_progress=seen.append)
+        stop = runner.submit(FnTask(spin, "spin"))
+        time.sleep(0.05)
+        stop.cancel()
+        outs, stopped = job.wait(), stop.wait()
+        progress = job.progress
+    times["TaskRunner jobs"] = time.perf_counter() - t0
+    print(f"TaskRunner: progress {seen} (read back {progress}), {len(outs)} "
+          f"results, the second job returned {stopped!r}")
+    if seen != list(range(1, len(truth) + 1)) or progress != len(truth) \
+            or stopped != "cancelled":
+        raise AssertionError("the task runner's progress or cancellation "
+                             "failed")
+    print("verbs phase stages, s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in times.items()))
+    return launches, {k: round(v, 3) for k, v in times.items()}
+
+
 def kernel_name(mangled):
     """The innermost name of a mangled nested kernel name, with its integer
     template arguments: '_ZN12_GLOBAL__N_116mvs_sweep_kernelILi2ELi9EEEv...'
@@ -2502,17 +3022,20 @@ def main():
     weight_rows = check_weights(
         device, torch.as_tensor(rig[2][0], device=device),
         {cfg.window_radius: ("mvs", "mvs_mrf"),
-         cfg2.window_radius: ("twoview", "twoview_mrf")}, reps=10)
+         cfg2.window_radius: ("twoview", "twoview_mrf", "twoview_sad")},
+        reps=10)
     inputs, nv = sweep_inputs(device, rig)
     rows = [weight_rows[cfg.window_radius],
             check_sweep(device, cfg, inputs, nv, reps=10, plain_reps=3),
             check_topk(device, cfg, inputs, nv, reps=10, plain_reps=2)]
     del inputs
     launches = {}
-    with tempfile.TemporaryDirectory() as outdir:
-        launches["mvs"], wta_coverage, sampled = main_path(
-            device, rig, true_depth, outdir)
-        profile_main_path(device, rig, outdir)
+    # the run's work directory: phase 5's PLY is phase 22's cloud
+    work = tempfile.TemporaryDirectory()
+    outdir = work.name
+    launches["mvs"], wta_coverage, sampled = main_path(
+        device, rig, true_depth, outdir)
+    profile_main_path(device, rig, outdir)
     launches["mvs_mrf"] = mrf_main_path(device, rig, true_depth,
                                         wta_coverage)
     profile_mrf(device, rig)
@@ -2540,7 +3063,7 @@ def main():
     rows += check_sweep_radii(device, 10)
     rows += check_cost_radii(device, 10)
     print(f"instances gated in {time.perf_counter() - t0:.1f} s")
-    del rig, rig2
+    del rig
 
     t0 = time.perf_counter()
     calib = {"rig": calib_rig_phase(device)}
@@ -2560,6 +3083,13 @@ def main():
     workflow = workflow_phase(device, scene_rgbs, true_depth)
     print(f"workflow phase in {time.perf_counter() - t0:.1f} s: "
           + json.dumps(workflow))
+    t0 = time.perf_counter()
+    launches["twoview_sad"], verbs = verbs_phase(
+        device, rig2, true_depth[:2], scene_rgbs,
+        os.path.join(outdir, "scene.ply"))
+    print(f"verbs phase in {time.perf_counter() - t0:.1f} s: "
+          + json.dumps(verbs))
+    work.cleanup()
 
     # a row's launches: its counter's count over the main paths that run
     # it, each read right after its own run (kernel 1 has a row for each

@@ -1,7 +1,9 @@
 """Headless CLI of the PyTorch port: the README workflow's ``info``,
 ``detect``, ``match``, ``calibrate``, ``refraction`` and ``stereo`` verbs
 (checkerboard and scene images -> features -> correspondences -> rig
-calibration -> refractive interfaces -> depth maps, depth PNGs and PLY).
+calibration -> refractive interfaces -> depth maps, depth PNGs and PLY),
+and the JAX package's other verbs: ``hdr``, ``layout``, ``cloud``,
+``convert-raw``, ``pmvs`` and ``edit``.
 
 Usage:
   python -m stereoreconstruction_tpu_torch.cli info   project.xml
@@ -18,24 +20,41 @@ Usage:
   python -m stereoreconstruction_tpu_torch.cli stereo project.xml \
       --image-set bunny --min-depth 30 --max-depth 80 --two-view \
       --save-npz out/depths.npz -o out/
+  python -m stereoreconstruction_tpu_torch.cli hdr project.xml \
+      --image-set S -o radiance.exr      # or .hdr (RGBE)
+  python -m stereoreconstruction_tpu_torch.cli layout project.xml \
+      -o layout.png
+  python -m stereoreconstruction_tpu_torch.cli cloud cloud.ply \
+      -o cloud.png [--splats --size 800]
+  python -m stereoreconstruction_tpu_torch.cli convert-raw DIR \
+      --width 1024 --height 768 [--algorithm es] [--delete]
+  python -m stereoreconstruction_tpu_torch.cli pmvs project.xml \
+      --image-set S -o pmvs/
+  python -m stereoreconstruction_tpu_torch.cli edit project.xml \
+      --set-interface CAM PX PY DIST RATIO [-o out.xml]
 
-Every verb but ``info`` runs on CUDA unless ``--device`` names another
-device (``--device cpu``); the checkerboard detector and the
-correspondences of board corners are host numpy either way.  ``detect``,
-``match``, ``calibrate`` and ``refraction`` write the project (``-o`` or
-in place).  ``stereo`` writes ``depth_<camera>.png`` for every view (MVS:
-grayscale, ``--two-view``: the HSV ramp) and, for the multi-view engine,
-``<image-set>.ply``; ``--two-view`` runs the two-view engine on the first
-two cameras and, as in the JAX package's CLI, writes no PLY.  ``--mrf``
-runs either engine's MRF flow (multi-view: top-K hypotheses + TRW-S;
-two-view: BP over the cost volume).  ``--resume`` keeps each view's
-initial estimate under ``<output>/checkpoint/`` and loads the views
-already computed with the same config (multi-view only, as in the JAX
-package).  Every verb takes ``--trace [JSON]`` (a stage-timer and metric
-summary on stderr, and with a path the tracer's JSON there) and
-``--device-trace LOGDIR`` (a torch.profiler Chrome trace of the whole
-verb, ``LOGDIR/trace.json``; ``runtime.trace.device_op_table`` reads its
-kernel times).
+``detect``, ``match``, ``calibrate``, ``refraction``, ``stereo`` and
+``layout`` run on CUDA unless ``--device`` names another device
+(``--device cpu``); the checkerboard detector and the correspondences of
+board corners are host numpy either way, and ``hdr``, ``cloud``,
+``convert-raw``, ``pmvs`` and ``edit`` are host numpy, as in the JAX
+package.  ``layout`` and ``cloud`` without ``--splats`` draw with
+matplotlib, as the JAX package's do; where it is not installed they exit
+2 saying so.  ``detect``, ``match``, ``calibrate``, ``refraction`` and
+``edit`` write the project (``-o`` or in place).  ``stereo`` writes
+``depth_<camera>.png`` for every view (MVS: grayscale, ``--two-view``: the
+HSV ramp) and, for the multi-view engine, ``<image-set>.ply``;
+``--two-view`` runs the two-view engine on the first two cameras and, as
+in the JAX package's CLI, writes no PLY.  ``--mrf`` runs either engine's
+MRF flow (multi-view: top-K hypotheses + TRW-S; two-view: BP over the cost
+volume).  ``--resume`` keeps each view's initial estimate under
+``<output>/checkpoint/`` and loads the views already computed with the
+same config (multi-view only, as in the JAX package).  Every verb with a
+project takes ``--trace [JSON]`` (a stage-timer and metric summary on
+stderr, and with a path the tracer's JSON there) and ``--device-trace
+LOGDIR`` (a torch.profiler Chrome trace of the whole verb,
+``LOGDIR/trace.json``; ``runtime.trace.device_op_table`` reads its kernel
+times).
 """
 
 from __future__ import annotations
@@ -255,13 +274,249 @@ def cmd_stereo(args):
     return 0
 
 
+def cmd_hdr(args):
+    from .data.formats import write_exr, write_rgbe
+    from .data.images import load_image
+    from .data.project_io import load_project
+    from .hdr.merge import merge_hdr
+    from .hdr.response import recover_response
+
+    proj = load_project(args.project)
+    iset = proj.image_sets[args.image_set]
+    cam_id = args.cameras[0] if args.cameras else sorted(proj.cameras)[0]
+    stack = [(img, img.exposure) for img in iset.images
+             if img.camera_id == cam_id and img.exposure > 0]
+    if len(stack) < 2:
+        print("need >= 2 exposures with exposure metadata", file=sys.stderr)
+        return 1
+    images = [load_image(im.file, 1.0).rgb for im, _ in stack]
+    exps = [e for _, e in stack]
+    resp = recover_response(images, exps)
+    hdr = merge_hdr(images, exps, resp)
+    out = args.output or f"{args.image_set}_{cam_id}.exr"
+    if out.endswith(".hdr"):
+        write_rgbe(out, hdr)
+    else:
+        write_exr(out, hdr)
+    print(f"wrote {out}")
+    return 0
+
+
+def _have_matplotlib(verb) -> bool:
+    """Whether matplotlib, which the layout and scatter renders draw with
+    (as in the JAX package), is installed; if not, say so on stderr."""
+    import importlib.util
+    if importlib.util.find_spec("matplotlib") is not None:
+        return True
+    print(f"{verb} needs matplotlib, which is not installed (cloud "
+          "--splats does not)", file=sys.stderr)
+    return False
+
+
+def cmd_layout(args):
+    from .data.project_io import load_project
+    from .device import resolve_device
+    from .viz.render import render_camera_layout
+
+    if not _have_matplotlib("layout"):
+        return 2
+    device = resolve_device(args.device)
+    proj = load_project(args.project)
+    cam_ids = sorted(proj.cameras)
+    cams = [proj.cameras[c].to_camera(device=device) for c in cam_ids]
+    out = args.output or "layout.png"
+    render_camera_layout(cams, out, names=cam_ids)
+    print(f"wrote {out}")
+    return 0
+
+
+def cmd_cloud(args):
+    """Render a PLY point cloud/mesh to a PNG (PointsViewScene equivalent;
+    --splats uses the Botsch-Kobbelt surface-splat path,
+    gui/widgets/pointsviewscene.cpp USE_SPLATS)."""
+    from .data.ply import generate_normals, read_ply_full
+    if not args.splats and not _have_matplotlib("cloud"):
+        return 2
+    d = read_ply_full(args.ply)
+    out = args.output or os.path.splitext(args.ply)[0] + ".png"
+    if args.splats:
+        from .viz.splats import render_splats
+        normals = d.normals
+        if normals is None:
+            normals = generate_normals(d.points, d.faces)
+        render_splats(d.points, d.colors, out, normals=normals,
+                      elev=args.elev, azim=args.azim,
+                      width=args.size, height=args.size)
+    else:
+        from .viz.render import render_point_cloud
+        render_point_cloud(d.points, d.colors, out,
+                           elev=args.elev, azim=args.azim)
+    print(f"wrote {out} ({len(d.points)} points)")
+    return 0
+
+
+def cmd_convert_raw(args):
+    """RAW (GRBG Bayer) -> PNG conversion over a directory tree, replicating
+    MainWindow::on_actionConvert_RAW_images_triggered (gui/mainwindow.cpp:
+    1054-1104): recurse, take ``*.raw`` files whose size is exactly w*h,
+    demosaic (edge-sensing by default, like the GUI), write ``<base>.png``
+    alongside.  The reference always deletes the original (and even deletes
+    wrong-sized files); here only under --delete."""
+    from PIL import Image
+    from .data.demosaic import DEMOSAICERS
+    algo = DEMOSAICERS[args.algorithm]
+    w, h = args.width, args.height
+    n = 0
+    for root, _dirs, files in os.walk(args.dir):
+        for fname in files:
+            if not fname.endswith(".raw"):
+                continue
+            path = os.path.join(root, fname)
+            if os.path.getsize(path) != w * h:
+                print(f"skipping {path}: size != {w * h}", file=sys.stderr)
+                continue
+            raw = np.fromfile(path, np.uint8).reshape(h, w)
+            rgb = algo(raw)
+            out = os.path.splitext(path)[0] + ".png"
+            Image.fromarray(rgb.astype(np.uint8), "RGB").save(out)
+            if args.delete:
+                os.remove(path)
+            n += 1
+    print(f"converted {n} RAW images")
+    return 0
+
+
+def cmd_pmvs(args):
+    """Export the project in PMVS-2 input layout (projection matrices +
+    images + option.txt), replicating MainWindow's PMVS export + PMVSDialog
+    (gui/mainwindow.cpp:983-1035, gui/dialogs/pmvsdialog.cpp:52-71).
+    Prints the pmvs-2 command line instead of spawning it."""
+    from .data.pmvs import export_pmvs
+    from .data.project_io import load_project
+    proj = load_project(args.project)
+    iset = proj.image_sets[args.image_set]
+    cam_ids = args.cameras or sorted(
+        c for c in proj.cameras
+        if iset.default_image_for_camera(c) is not None)
+    recs = [proj.cameras[c] for c in cam_ids]
+    paths = [iset.default_image_for_camera(c).file for c in cam_ids]
+    out = args.output or "pmvs"
+    argv = export_pmvs(out, recs, paths, level=args.level,
+                       csize=args.csize, threshold=args.pmvs_threshold,
+                       wsize=args.wsize, min_image_num=args.min_image_num)
+    print(f"exported {len(paths)} views to {out}")
+    print("run:", " ".join(argv))
+    return 0
+
+
+def cmd_edit(args):
+    """Headless project editing: the GUI's project-tree CRUD
+    (MainWindow, gui/mainwindow.cpp:1221-1408 — add/remove/rename cameras
+    and image sets) and the camera parameter editors (CameraInfoWidget;
+    StereoWidget's live refractive-interface spinners,
+    gui/widgets/stereowidget.cpp:472-549).  Removing a camera or image set
+    also drops its features/correspondences, like the reference's Project
+    registry teardown."""
+    from .data.project_io import (CameraRecord, ImageRecord,
+                                  ImageSetRecord, load_project,
+                                  save_project)
+    proj = load_project(args.project)
+
+    def camera(cid):
+        if cid not in proj.cameras:
+            print(f"no camera {cid!r}", file=sys.stderr)
+            raise SystemExit(1)
+        return proj.cameras[cid]
+
+    def floats(s, n, what):
+        v = [float(x) for x in s.split(",")]
+        if len(v) != n:
+            print(f"{what} needs {n} comma-separated values, got {len(v)}",
+                  file=sys.stderr)
+            raise SystemExit(1)
+        return v
+
+    for cid in args.add_camera or []:
+        if cid in proj.cameras:
+            print(f"camera {cid!r} exists", file=sys.stderr)
+            return 1
+        P = np.zeros((3, 4))
+        P[:, :3] = np.eye(3)
+        proj.cameras[cid] = CameraRecord(id=cid, name=cid, P=P,
+                                         dist=np.zeros(5))
+    for sid in args.add_set or []:
+        if sid in proj.image_sets:
+            print(f"image set {sid!r} exists", file=sys.stderr)
+            return 1
+        proj.image_sets[sid] = ImageSetRecord(
+            id=sid, name=sid,
+            root=os.path.dirname(os.path.abspath(args.project)))
+    for sid, cid, path in args.add_image or []:
+        iset = proj.image_sets.get(sid)
+        if iset is None:
+            print(f"no image set {sid!r}", file=sys.stderr)
+            return 1
+        camera(cid)
+        iset.images.append(ImageRecord(
+            file=os.path.abspath(path), camera_id=cid,
+            is_default=iset.default_image_for_camera(cid) is None))
+
+    for cid, px, py, dist, ratio in args.set_interface or []:
+        rec = camera(cid)
+        rec.refr_px, rec.refr_py = float(px), float(py)
+        rec.refr_dist, rec.refr_index = float(dist), float(ratio)
+    for cid in args.clear_interface or []:
+        rec = camera(cid)
+        rec.refr_px = rec.refr_py = rec.refr_dist = 0.0
+        rec.refr_index = 1.0
+    for cid, vals in args.set_distortion or []:
+        camera(cid).dist = np.asarray(floats(vals, 5, "--set-distortion"))
+    for cid, vals in args.set_p or []:
+        camera(cid).P = np.asarray(
+            floats(vals, 12, "--set-p")).reshape(3, 4)
+    for cid, name in args.rename_camera or []:
+        camera(cid).name = name
+    for sid, name in args.rename_set or []:
+        if sid not in proj.image_sets:
+            print(f"no image set {sid!r}", file=sys.stderr)
+            return 1
+        proj.image_sets[sid].name = name
+
+    for cid in args.remove_camera or []:
+        camera(cid)
+        del proj.cameras[cid]
+        for iset in proj.image_sets.values():
+            iset.images = [im for im in iset.images
+                           if im.camera_id != cid]
+        proj.features = {k: v for k, v in proj.features.items()
+                         if k[1] != cid}
+        proj.correspondences = {
+            k: v for k, v in proj.correspondences.items()
+            if cid not in (k[1], k[3])}
+    for sid in args.remove_set or []:
+        if sid not in proj.image_sets:
+            print(f"no image set {sid!r}", file=sys.stderr)
+            return 1
+        del proj.image_sets[sid]
+        proj.features = {k: v for k, v in proj.features.items()
+                         if k[0] != sid}
+        proj.correspondences = {
+            k: v for k, v in proj.correspondences.items()
+            if sid not in (k[0], k[2])}
+
+    save_project(proj, args.output or args.project)
+    print(f"saved {args.output or args.project}: "
+          f"{len(proj.cameras)} cameras, {len(proj.image_sets)} sets")
+    return 0
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="stereoreconstruction_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    def common(sp, writes=True):
+    def common(sp, writes=True, device=True):
         """The project, the tracing options and, for a verb that writes,
-        -o and --device."""
+        -o and (with ``device``) --device."""
         sp.add_argument("project")
         sp.add_argument("--trace", metavar="JSON", nargs="?", const="-",
                         default=None,
@@ -274,8 +529,13 @@ def main(argv=None):
                              "trace format)")
         if writes:
             sp.add_argument("-o", "--output")
-            sp.add_argument("--device", default=None,
-                            help="torch device (default: cuda)")
+            if device:
+                sp.add_argument("--device", default=None,
+                                help="torch device (default: cuda)")
+
+    def image_set_and_cameras(sp):
+        sp.add_argument("--image-set", required=True)
+        sp.add_argument("--cameras", nargs="*", default=None)
 
     sp = sub.add_parser("info")
     common(sp, writes=False)
@@ -319,8 +579,7 @@ def main(argv=None):
 
     sp = sub.add_parser("stereo")
     common(sp)
-    sp.add_argument("--image-set", required=True)
-    sp.add_argument("--cameras", nargs="*", default=None)
+    image_set_and_cameras(sp)
     sp.add_argument("--min-depth", type=float, default=300.0)
     sp.add_argument("--max-depth", type=float, default=800.0)
     sp.add_argument("--depth-levels", type=int, default=100)
@@ -348,16 +607,85 @@ def main(argv=None):
     sp.add_argument("--shard", default=None)
     sp.set_defaults(fn=cmd_stereo)
 
+    sp = sub.add_parser("hdr")
+    common(sp, device=False)
+    image_set_and_cameras(sp)
+    sp.set_defaults(fn=cmd_hdr)
+
+    sp = sub.add_parser(
+        "edit", help="project CRUD + camera parameter edits (headless "
+                     "CameraInfoWidget / StereoWidget spinners / "
+                     "project-tree actions)")
+    sp.add_argument("project")
+    sp.add_argument("-o", "--output")
+    sp.add_argument("--set-interface", nargs=5, action="append",
+                    metavar=("CAM", "PX", "PY", "DIST", "RATIO"),
+                    help="set a camera's refractive interface (the "
+                         "StereoWidget spinners)")
+    sp.add_argument("--clear-interface", action="append", metavar="CAM")
+    sp.add_argument("--set-distortion", nargs=2, action="append",
+                    metavar=("CAM", "K1,K2,P1,P2,K3"))
+    sp.add_argument("--set-p", nargs=2, action="append",
+                    metavar=("CAM", "M11,...,M34"),
+                    help="set the 3x4 projection matrix (row-major, 12 "
+                         "comma-separated values)")
+    sp.add_argument("--rename-camera", nargs=2, action="append",
+                    metavar=("CAM", "NAME"))
+    sp.add_argument("--rename-set", nargs=2, action="append",
+                    metavar=("SET", "NAME"))
+    sp.add_argument("--add-camera", action="append", metavar="ID")
+    sp.add_argument("--remove-camera", action="append", metavar="ID")
+    sp.add_argument("--add-set", action="append", metavar="ID")
+    sp.add_argument("--remove-set", action="append", metavar="ID")
+    sp.add_argument("--add-image", nargs=3, action="append",
+                    metavar=("SET", "CAM", "FILE"))
+    sp.set_defaults(fn=cmd_edit)
+
+    sp = sub.add_parser("layout")
+    common(sp)
+    sp.set_defaults(fn=cmd_layout)
+
+    sp = sub.add_parser("cloud")
+    sp.add_argument("ply")
+    sp.add_argument("-o", "--output")
+    sp.add_argument("--splats", action="store_true",
+                    help="Botsch-Kobbelt surface splatting (USE_SPLATS)")
+    sp.add_argument("--elev", type=float, default=-70.0)
+    sp.add_argument("--azim", type=float, default=-90.0)
+    sp.add_argument("--size", type=int, default=800)
+    sp.set_defaults(fn=cmd_cloud)
+
+    sp = sub.add_parser("convert-raw")
+    sp.add_argument("dir")
+    sp.add_argument("--width", type=int, required=True)
+    sp.add_argument("--height", type=int, required=True)
+    sp.add_argument("--algorithm", choices=("es", "nn", "bl", "hue"),
+                    default="es")
+    sp.add_argument("--delete", action="store_true",
+                    help="remove originals after conversion (the "
+                         "reference's behavior)")
+    sp.set_defaults(fn=cmd_convert_raw)
+
+    sp = sub.add_parser("pmvs")
+    common(sp, device=False)
+    image_set_and_cameras(sp)
+    sp.add_argument("--level", type=int, default=1)
+    sp.add_argument("--csize", type=int, default=2)
+    sp.add_argument("--pmvs-threshold", type=float, default=0.7)
+    sp.add_argument("--wsize", type=int, default=7)
+    sp.add_argument("--min-image-num", type=int, default=3)
+    sp.set_defaults(fn=cmd_pmvs)
+
     args = p.parse_args(argv)
 
     import contextlib
     from .runtime import trace as tracing
     with contextlib.ExitStack() as stack:
-        if args.device_trace:
+        if getattr(args, "device_trace", None):
             stack.enter_context(tracing.device_trace(args.device_trace))
         with tracing.trace(args.cmd):
             rc = args.fn(args) or 0
-    if args.trace is not None:
+    if getattr(args, "trace", None) is not None:
         print(tracing.summary(), file=sys.stderr)
         if args.trace != "-":
             tracing.get_tracer().dump_json(args.trace)

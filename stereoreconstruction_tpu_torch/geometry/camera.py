@@ -193,6 +193,15 @@ def decompose_P(P: np.ndarray):
     return K, R, t, C
 
 
+def camera_from_P(P, dist=None, plane_normal=None, plane_dist=0.0,
+                  refr_index=1.0, dtype=torch.float64, device="cpu"):
+    """Camera::setP: decompose P (host numpy) and build the camera."""
+    K, R, t, _ = decompose_P(np.asarray(P))
+    return make_camera(K, R, t, dist=dist, plane_normal=plane_normal,
+                       plane_dist=plane_dist, refr_index=refr_index,
+                       dtype=dtype, device=device)
+
+
 # ---------------------------------------------------------------------------
 # Frame transforms (camera.cpp:346-376)
 # ---------------------------------------------------------------------------
@@ -212,6 +221,10 @@ def apply_mat3(M, v):
 
 def from_global_to_local(cam: Camera, p):
     return apply_mat3(cam.R, p) + cam.t
+
+
+def from_local_to_global(cam: Camera, p):
+    return apply_mat3(cam.R.transpose(-1, -2), p - cam.t)
 
 
 def principal_ray(cam: Camera):

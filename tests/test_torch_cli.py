@@ -385,3 +385,259 @@ def test_cli_calibrate_and_refraction_match_jax(tmp_path, capsys):
     # from where the project held them
     refr = out["torch"][1].cameras
     assert refr["cam0"].refr_index != 1.30 and refr["cam1"].refr_dist != 7.0
+
+
+# --------------------------------------------------------------------------
+# hdr, convert-raw, pmvs, layout, cloud: both packages' verbs, same outputs
+# --------------------------------------------------------------------------
+
+def _tree(root):
+    return {str(p.relative_to(root)): p.read_bytes()
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def test_cli_hdr_matches_jax(tmp_path, capsys):
+    """``hdr`` on a 5-exposure stack (tests/test_hdr.py's synth_stack) as
+    PNGs with exposure metadata: the EXR and RGBE files of both packages'
+    verbs are byte-equal, and read back with the port's readers the
+    radiance is within test_hdr.py's tolerance of the truth."""
+    from stereoreconstruction_tpu import cli as jcli
+    from stereoreconstruction_tpu_torch.data.formats import (read_exr,
+                                                             read_rgbe)
+    from test_hdr import synth_stack
+
+    images, exps, radiance, _ = synth_stack(np.random.default_rng(0))
+    proj = ProjectData(path=str(tmp_path / "h.xml"))
+    proj.cameras["c0"] = CameraRecord(id="c0", name="c0",
+                                      P=np.hstack([np.eye(3),
+                                                   np.zeros((3, 1))]),
+                                      dist=np.zeros(5))
+    iset = ImageSetRecord(id="hdr", name="hdr", root=str(tmp_path))
+    for k, (img, e) in enumerate(zip(images, exps)):
+        fn = tmp_path / f"e{k}.png"
+        Image.fromarray(img.astype(np.uint8)).save(fn)
+        iset.images.append(ImageRecord(file=str(fn), camera_id="c0",
+                                       is_default=k == 0, exposure=e))
+    proj.image_sets["hdr"] = iset
+    save_project(proj, proj.path)
+    for ext, reader in ((".exr", read_exr), (".hdr", read_rgbe)):
+        outs = [tmp_path / f"{name}{ext}" for name in ("t", "j")]
+        assert cli.main(["hdr", proj.path, "--image-set", "hdr", "-o",
+                         str(outs[0])]) == 0
+        assert jcli.main(["hdr", proj.path, "--image-set", "hdr", "-o",
+                          str(outs[1])]) == 0
+        assert outs[0].read_bytes() == outs[1].read_bytes()
+        hdr = reader(str(outs[0]))
+        mask = (radiance > 0.1) & (radiance < 3.0)
+        scale = np.median(hdr[mask] / radiance[mask])
+        rel = np.abs(hdr[mask] / scale - radiance[mask]) / radiance[mask]
+        assert np.median(rel) < 0.1
+    assert "wrote" in capsys.readouterr().out
+    # a camera with one exposure: the verb refuses, as the JAX package's
+    iset.images = iset.images[:1]
+    save_project(proj, proj.path)
+    assert cli.main(["hdr", proj.path, "--image-set", "hdr"]) == 1
+    assert "need >= 2 exposures" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("algorithm", ["es", "hue"])
+def test_cli_convert_raw_matches_jax(tmp_path, capsys, algorithm):
+    """``convert-raw`` over a tree: each right-sized ``.raw`` becomes the
+    JAX verb's PNG, a wrong-sized file is skipped, originals stay unless
+    ``--delete``."""
+    from stereoreconstruction_tpu import cli as jcli
+
+    trees = [tmp_path / "t", tmp_path / "j"]
+    for root in trees:
+        sub = root / "a" / "b"
+        sub.mkdir(parents=True)
+        for k in range(2):
+            rng = np.random.default_rng(k)
+            rng.integers(0, 256, (24, 32), dtype=np.uint8).tofile(
+                str(sub / f"img{k}.raw"))
+        (root / "bad.raw").write_bytes(b"\0" * 10)
+    args = ["--width", "32", "--height", "24", "--algorithm", algorithm]
+    assert cli.main(["convert-raw", str(trees[0])] + args) == 0
+    captured = capsys.readouterr()
+    assert "converted 2 RAW images" in captured.out
+    assert "skipping" in captured.err and "bad.raw" in captured.err
+    assert jcli.main(["convert-raw", str(trees[1])] + args) == 0
+    assert _tree(trees[0]) == _tree(trees[1])
+    assert (trees[0] / "a" / "b" / "img0.raw").exists()
+    assert not (trees[0] / "bad.png").exists()
+    assert cli.main(["convert-raw", str(trees[0]), "--delete"] + args) == 0
+    assert not (trees[0] / "a" / "b" / "img0.raw").exists()
+    assert (trees[0] / "bad.raw").exists()
+
+
+def test_cli_pmvs_matches_jax(project, tmp_path, capsys):
+    """``pmvs``: both verbs write the same layout (CONTOUR matrices, the
+    views' images, option.txt); each matrix is the project's P; without
+    ``--image-set`` the verb exits 2."""
+    from stereoreconstruction_tpu import cli as jcli
+
+    path = str(project / "p.xml")
+    outs = [tmp_path / "t", tmp_path / "j"]
+    assert cli.main(["pmvs", path, "--image-set", "scene", "-o",
+                     str(outs[0]), "--level", "2"]) == 0
+    assert "pmvs-2" in capsys.readouterr().out
+    assert jcli.main(["pmvs", path, "--image-set", "scene", "-o",
+                      str(outs[1]), "--level", "2"]) == 0
+    assert _tree(outs[0]) == _tree(outs[1])
+    proj = load_project(path)
+    for i, cid in enumerate(sorted(proj.cameras)):
+        rows = (outs[0] / "txt" / f"{i:08d}.txt").read_text().split("\n")
+        assert rows[0] == "CONTOUR"
+        P = np.array([[float(v) for v in r.split()] for r in rows[1:4]])
+        np.testing.assert_allclose(P, proj.cameras[cid].P, rtol=1e-9)
+    assert "level 2" in (outs[0] / "option.txt").read_text()
+    with pytest.raises(SystemExit) as e:
+        cli.main(["pmvs", path])
+    assert e.value.code == 2
+
+
+def test_cli_layout_and_cloud_match_jax(project, tmp_path):
+    """``layout`` (the port's cameras on the CPU) and ``cloud`` with and
+    without ``--splats`` on the MVS verb's PLY: the same images as the JAX
+    package's verbs."""
+    from stereoreconstruction_tpu import cli as jcli
+
+    path = str(project / "p.xml")
+    lay = [tmp_path / "lt.png", tmp_path / "lj.png"]
+    assert cli.main(["layout", path, "-o", str(lay[0]), "--device",
+                     "cpu"]) == 0
+    jcli.main(["layout", path, "-o", str(lay[1])])
+    np.testing.assert_array_equal(np.asarray(Image.open(lay[0])),
+                                  np.asarray(Image.open(lay[1])))
+
+    ply = str(tmp_path / "cloud.ply")
+    assert cli.main(["stereo", path, "-o", str(tmp_path)] + ARGS) == 0
+    os.replace(tmp_path / "scene.ply", ply)
+    for extra in ([], ["--splats", "--size", "96"]):
+        outs = [tmp_path / "ct.png", tmp_path / "cj.png"]
+        assert cli.main(["cloud", ply, "-o", str(outs[0])] + extra) == 0
+        assert jcli.main(["cloud", ply, "-o", str(outs[1])] + extra) == 0
+        got = np.asarray(Image.open(outs[0]))
+        np.testing.assert_array_equal(got, np.asarray(Image.open(outs[1])))
+        assert (got[..., :3].sum(-1) > 0).any()
+
+
+def test_cli_renders_refuse_without_matplotlib(project, tmp_path,
+                                              monkeypatch, capsys):
+    """Where matplotlib is not installed, ``layout`` and the scatter
+    ``cloud`` exit 2 saying so and write nothing; ``cloud --splats``
+    (numpy and PIL) still renders."""
+    import importlib.util
+
+    find_spec = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec", lambda name, *a:
+                        None if name == "matplotlib" else find_spec(name, *a))
+    path = str(project / "p.xml")
+    ply = str(tmp_path / "c.ply")
+    from stereoreconstruction_tpu_torch.data.ply import write_ply
+    write_ply(ply, np.random.default_rng(0).normal(size=(500, 3)),
+              np.full((500, 3), 200))
+    out = tmp_path / "x.png"
+    assert cli.main(["layout", path, "-o", str(out), "--device",
+                     "cpu"]) == 2
+    assert cli.main(["cloud", ply, "-o", str(out)]) == 2
+    assert "needs matplotlib" in capsys.readouterr().err
+    assert not out.exists()
+    assert cli.main(["cloud", ply, "-o", str(out), "--splats", "--size",
+                     "64"]) == 0
+    assert out.exists()
+
+
+# --------------------------------------------------------------------------
+# edit: tests/test_cli_edit.py's five cases on the port's verb
+# --------------------------------------------------------------------------
+
+def _edit_project(tmp_path):
+    from stereoreconstruction_tpu_torch.data.project_io import FeatureRecord
+    proj = ProjectData()
+    P = np.zeros((3, 4))
+    P[:, :3] = np.eye(3)
+    for cid in ("a", "b"):
+        proj.cameras[cid] = CameraRecord(id=cid, name=cid, P=P.copy(),
+                                         dist=np.zeros(5))
+    iset = ImageSetRecord(id="s1", name="s1", root=str(tmp_path))
+    iset.images.append(ImageRecord(file=str(tmp_path / "x.jpg"),
+                                   camera_id="a"))
+    proj.image_sets["s1"] = iset
+    proj.features[("s1", "a")] = [FeatureRecord(x=1, y=2, kind="surf")]
+    proj.features[("s1", "b")] = [FeatureRecord(x=3, y=4, kind="surf")]
+    proj.correspondences[("s1", "a", "s1", "b")] = [(0, 0)]
+    path = tmp_path / "p.xml"
+    save_project(proj, str(path))
+    return str(path)
+
+
+def test_cli_edit_set_and_clear_interface(tmp_path, capsys):
+    path = _edit_project(tmp_path)
+    out = str(tmp_path / "o.xml")
+    assert cli.main(["edit", path, "-o", out, "--set-interface", "a", "320",
+                     "240", "2.5", "1.333"]) == 0
+    rec = load_project(out).cameras["a"]
+    assert (rec.refr_px, rec.refr_py) == (320, 240)
+    assert rec.refr_dist == 2.5 and rec.refr_index == 1.333
+    assert float(rec.to_camera().refr_index) == 1.333
+    assert cli.main(["info", out]) == 0
+    assert "camera a refractive(n=1.333, d=2.5)" in capsys.readouterr().out
+    assert cli.main(["edit", out, "--clear-interface", "a"]) == 0
+    assert load_project(out).cameras["a"].refr_index == 1.0
+    assert cli.main(["info", out]) == 0
+    assert "refractive" not in capsys.readouterr().out
+
+
+def test_cli_edit_remove_camera_drops_dependents(tmp_path):
+    path = _edit_project(tmp_path)
+    assert cli.main(["edit", path, "--remove-camera", "b"]) == 0
+    p2 = load_project(path)
+    assert set(p2.cameras) == {"a"}
+    assert ("s1", "b") not in p2.features
+    assert not p2.correspondences
+
+
+def test_cli_edit_remove_set_drops_dependents(tmp_path):
+    path = _edit_project(tmp_path)
+    assert cli.main(["edit", path, "--remove-set", "s1"]) == 0
+    p2 = load_project(path)
+    assert not p2.image_sets and not p2.features
+    assert not p2.correspondences
+
+
+def test_cli_edit_add_and_edit_params(tmp_path):
+    path = _edit_project(tmp_path)
+    (tmp_path / "new.jpg").write_bytes(b"")
+    assert cli.main(["edit", path,
+                     "--add-camera", "c",
+                     "--add-set", "s2",
+                     "--add-image", "s2", "c", str(tmp_path / "new.jpg"),
+                     "--set-distortion", "c", "0.1,0.2,0,0,0.3",
+                     "--set-p", "c", "900,0,320,0,0,900,240,0,0,0,1,0",
+                     "--rename-camera", "c", "left rig cam"]) == 0
+    rec = load_project(path).cameras["c"]
+    assert rec.name == "left rig cam"
+    np.testing.assert_allclose(rec.dist, [0.1, 0.2, 0, 0, 0.3])
+    assert rec.P[0, 0] == 900 and rec.P[2, 2] == 1
+    img = load_project(path).image_sets["s2"].default_image_for_camera("c")
+    assert img is not None and img.file.endswith("new.jpg")
+
+
+def test_cli_edit_unknown_camera_fails(tmp_path, capsys):
+    path = _edit_project(tmp_path)
+    with pytest.raises(SystemExit) as e:
+        cli.main(["edit", path, "--clear-interface", "zz"])
+    assert e.value.code == 1
+    assert "no camera 'zz'" in capsys.readouterr().err
+    assert cli.main(["edit", path, "--add-camera", "a"]) == 1
+
+
+def test_cli_help_lists_every_verb_of_the_jax_cli(capsys):
+    with pytest.raises(SystemExit):
+        cli.main(["--help"])
+    text = capsys.readouterr().out
+    for verb in ("info", "detect", "match", "calibrate", "refraction",
+                 "stereo", "hdr", "layout", "cloud", "convert-raw", "pmvs",
+                 "edit"):
+        assert verb in text

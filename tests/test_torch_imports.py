@@ -42,7 +42,20 @@ def test_importing_every_module_loads_no_jax():
             "stereoreconstruction_tpu_torch.features.matching",
             "stereoreconstruction_tpu_torch.features.surf",
             "stereoreconstruction_tpu_torch.runtime.checkpoint",
-            "stereoreconstruction_tpu_torch.viz.render"} <= set(mods)
+            "stereoreconstruction_tpu_torch.viz.render",
+            "stereoreconstruction_tpu_torch.viz.splats",
+            "stereoreconstruction_tpu_torch.geometry.plane",
+            "stereoreconstruction_tpu_torch.stereo.postprocess",
+            "stereoreconstruction_tpu_torch.stereo.epipolar",
+            "stereoreconstruction_tpu_torch.hdr.merge",
+            "stereoreconstruction_tpu_torch.hdr.response",
+            "stereoreconstruction_tpu_torch.data.demosaic",
+            "stereoreconstruction_tpu_torch.data.formats",
+            "stereoreconstruction_tpu_torch.data.pmvs",
+            "stereoreconstruction_tpu_torch.runtime.tasks",
+            "stereoreconstruction_tpu_torch.runtime.capture",
+            "stereoreconstruction_tpu_torch.runtime.native",
+            "stereoreconstruction_tpu_torch.runtime.native.build"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -165,14 +165,11 @@ def test_exact_matches_jax_exact_float64():
 
 
 def test_unported_options_raise():
+    """An unknown method raises.  (The SAD cost, once refused here, is
+    ported: tests/test_torch_twoview_sad.py.)"""
     cams, rgbs, masks, _ = _scene(False)
     tcams = port_cameras(cams)
     args = (rgbs[0], masks[0], rgbs[1], masks[1], tcams[0], tcams[1])
-    with pytest.raises(NotImplementedError, match="SAD"):
-        ttv.compute_depth_maps(*args, TConfig(cost="sad"), device="cpu")
-    with pytest.raises(NotImplementedError, match="SAD"):
-        ttv.compute_depth_maps(*args, TConfig(cost="sad"), use_mrf=True,
-                               device="cpu")
     with pytest.raises(ValueError, match="unknown stereo method"):
         ttv.compute_depth_maps(*args, TConfig(), method="bogus",
                                device="cpu")

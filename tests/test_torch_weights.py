@@ -4,7 +4,9 @@
 (ops/cuda_weights.py runs it for CPU tensors).  Tolerances: atol 2e-5 for
 the float32 clamped sweep (the JAX Pallas kernel's own test bound; both
 sides run the same recurrence, only exp/sqrt rounding may differ), atol
-1e-12 for the float64 exact chain.
+1e-12 for the float64 exact chain.  The adaptive and uniform weights
+(``WeightConfig.kind``): atol 1e-6 in float32 and 1e-14 in float64 (one
+exp and one sqrt apart), uniform equal.
 """
 
 import numpy as np
@@ -12,6 +14,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from stereoreconstruction_tpu.ops import weights as jweights
 from stereoreconstruction_tpu.ops.weights import geodesic_weights as jgw
 from stereoreconstruction_tpu_torch.config import WeightConfig
 from stereoreconstruction_tpu_torch.ops.cuda_weights import (
@@ -90,3 +93,33 @@ def test_fast_weights_with_holes_match_jax(rng, radius):
     # than in the same image without them
     free = cuda_geodesic_weights(torch.as_tensor(rgb), radius).numpy()
     assert (got < free - 1e-3).any()
+
+
+@pytest.mark.parametrize("kind", ["adaptive", "uniform"])
+@pytest.mark.parametrize("radius", [2, 5])
+def test_adaptive_and_uniform_weights_match_jax(rng, kind, radius):
+    """``compute_weights`` for the other two kinds against JAX, with and
+    without a holed ``pixel_valid``, in float32 and float64.  Under x64 the
+    JAX package's adaptive weights come out float64 for a float32 image
+    (its spatial factor is a float64 numpy array); its callers cast them
+    to the image's dtype, and so does this comparison."""
+    cfg = WeightConfig(kind=kind)
+    for dtype in ("float32", "float64"):
+        rgb = rng.uniform(0, 255, (14, 17, 3)).astype(dtype)
+        valid = rng.uniform(size=(14, 17)) > 0.2
+        for pv in (None, valid):
+            want = np.asarray(jweights.compute_weights(
+                jnp.asarray(rgb), radius, cfg,
+                pixel_valid=None if pv is None else jnp.asarray(pv)))
+            got = compute_weights(
+                torch.as_tensor(rgb), radius, cfg,
+                pixel_valid=None if pv is None else torch.as_tensor(pv))
+            assert got.dtype == getattr(torch, dtype)
+            want = want.astype(dtype)
+            if kind == "uniform":
+                np.testing.assert_array_equal(got.numpy(), want)
+            else:
+                np.testing.assert_allclose(
+                    got.numpy(), want, rtol=0,
+                    atol=1e-6 if dtype == "float32" else 1e-14)
+            assert (want == 0).any() and (want > 0.5).any()
