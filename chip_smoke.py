@@ -136,10 +136,32 @@ Phases; any failure raises, and the script exits non-zero:
     ``info`` (an interface set and cleared), and a
     TaskRunner job on the native pool (its progress, and a cancellation);
     each step's seconds;
-23. print the kernel table as one JSON line (kernel 1 has a row for each
+23. the sharded engines (parallel/ on torch.distributed), each rank a
+    process spawned by launcher.run_local, against the unsharded engines
+    on the card: 2 and 4 ranks of a world of 4 (gloo with every rank on
+    the one card; NCCL where every rank has a card of its own, and a world
+    of 2 on NCCL with 2 or 3 cards) and a world of 1 on NCCL (the script's
+    own process in a group of one), so that each collective is a real
+    NCCL call.  The row-sharded
+    two-view pair (views 0-1, TwoViewConfig defaults at the two-view
+    path's shape) bit-equal to compute_depth_maps(method="kernel") on
+    every rank; the depth-sharded MVS (8 views, 100 labels) bit-equal to
+    mvs_depth_maps and view 0's top-K lists (K = 9) equal to the unsharded
+    lists; 2 pairs on a 2x2 grid (4 ranks) bit-equal per pair; bench.py's
+    bundle adjustment's Schur blocks all-reduced over 2 ranks (and 1 on
+    NCCL) within 1e-12 relative of schur_blocks.  Each rank's seconds,
+    backend and launches are printed: kernels 1, 3, 4 and 5 on every row
+    rank, kernel 2 once a view a rank with that rank's label0.  Then the
+    native oracle (runtime/native/twoview_oracle.cpp, the machine's CPU)
+    on view 0 of the two-view pair, beside the port's sweep on the card;
+    and ``cli stereo --two-view --shard row`` launched by ``python -m
+    torch.distributed.run`` on 2 ranks, its npz bit-equal to the same verb
+    unsharded (``--shard none``);
+24. print the kernel table as one JSON line (kernel 1 has a row for each
     radius; each row's launches are summed over the paths that run it,
-    each read right after its own run: the four main paths and phase 22's
-    SAD path; the instances of phase 16 have rows of their own, timed on
+    each read right after its own run: the four main paths, phase 22's
+    SAD path and phase 23's sharded paths, summed over their ranks and
+    worlds; the instances of phase 16 have rows of their own, timed on
     their gates' inputs, with 0 launches; phases 17-21 add none), then
     the result line {"ok": true, "device": {...}} last.
 
@@ -162,6 +184,12 @@ import time
 
 import numpy as np
 import torch
+
+# kernel 4's work in its own form, shared with the row-shard scaling model
+from stereoreconstruction_tpu_torch.parallel.scaling import (
+    cost_counts, cost_ops, cost_row_ops, rowshard_scaling)
+# each kernel wrapper of the paths by its counter's name
+from stereoreconstruction_tpu_torch.parallel.programs import kernel_counters
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 (non-tensor) op/s.
 PEAK_BYTES_S = 3.35e12
@@ -598,7 +626,7 @@ def check_sweep(device, cfg, inputs, nv, reps, plain_reps):
                 replaces="stereoreconstruction_tpu/ops/pallas_mvs.py:306",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=by, library_ms=None,
-                paths=("mvs",))
+                paths=("mvs", "mvs_slabs"))
 
 
 def check_topk(device, cfg, inputs, nv, reps, plain_reps):
@@ -666,26 +694,7 @@ def check_topk(device, cfg, inputs, nv, reps, plain_reps):
                 replaces="stereoreconstruction_tpu/ops/pallas_mvs.py:306",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=by, library_ms=None,
-                paths=("mvs_mrf",))
-
-
-def kernel_counters():
-    """Each kernel wrapper of the main paths by its counter's name."""
-    from stereoreconstruction_tpu_torch.ops.cuda_cost_wta import (
-        cuda_cost_volume, cuda_cost_wta)
-    from stereoreconstruction_tpu_torch.ops.cuda_mvs import (
-        cuda_mvs_topk, cuda_mvs_wta)
-    from stereoreconstruction_tpu_torch.ops.cuda_sample import (
-        cuda_sample_nearest)
-    from stereoreconstruction_tpu_torch.ops.cuda_warp import (
-        cuda_warp_bilinear)
-    from stereoreconstruction_tpu_torch.ops.cuda_weights import (
-        cuda_geodesic_weights)
-    return {"geodesic_weights": cuda_geodesic_weights,
-            "mvs_sweep": cuda_mvs_wta, "mvs_sweep_topk": cuda_mvs_topk,
-            "warp_bilinear": cuda_warp_bilinear, "cost_wta": cuda_cost_wta,
-            "cost_volume": cuda_cost_volume,
-            "sample_nearest": cuda_sample_nearest}
+                paths=("mvs_mrf", "mvs_slabs"))
 
 
 # the kernels each main path must launch
@@ -1000,52 +1009,10 @@ def check_warp(device, tv, reps, plain_reps):
                source="stereoreconstruction_tpu_torch/csrc/warp_bilinear.cu",
                replaces="stereoreconstruction_tpu/ops/pallas_warp.py:182",
                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-               bound_by=by, library_ms=None, paths=("twoview", "twoview_mrf"))
+               bound_by=by, library_ms=None,
+               paths=("twoview", "twoview_mrf", "twoview_rows",
+                      "twoview_pairs"))
     return row, w_k, v_k
-
-
-def cost_counts(left_valid, weights, wvalid, radius):
-    """The cost kernel's work on these inputs, split as the kernel splits
-    it.  A unit is a (pixel, label) whose own warp sample is valid; a
-    pixel's left mask is its taps with left validity and weight > 1e-10.  A
-    unit is hoisted when every left-mask tap has a valid warp sample: it
-    then sums the right-hand terms over the left mask and takes the rest
-    from the pixel's sums.  Otherwise it is a full unit, whose evaluated
-    taps are the left-mask taps with a valid warp sample.  Returns a dict
-    of the counts: hoisted units and their taps, full units and their
-    evaluated taps, and the left-mask taps of all pixels."""
-    size = 2 * radius + 1
-    n, h, w = wvalid.shape
-    pad = (radius,) * 4
-    lpad = torch.nn.functional.pad(left_valid[None], pad, value=False)[0]
-    vpad = torch.nn.functional.pad(wvalid, pad, value=False)
-    left = [lpad[s:s + h, t:t + w] & (weights[s, t] > 1e-10)
-            for s in range(size) for t in range(size)]
-    offs = [(s, t) for s in range(size) for t in range(size)]
-    n_left = sum(m.to(torch.int32) for m in left)
-    broken = torch.zeros_like(wvalid)
-    for m, (s, t) in zip(left, offs):
-        broken |= m & ~vpad[:, s:s + h, t:t + w]
-    hoisted = wvalid & ~broken
-    full = wvalid & broken
-    full_taps = sum(int((m & vpad[:, s:s + h, t:t + w] & full).sum())
-                    for m, (s, t) in zip(left, offs))
-    return dict(hoisted_units=int(hoisted.sum()),
-                hoisted_taps=int((n_left * hoisted).sum()),
-                full_units=int(full.sum()), full_taps=full_taps,
-                left_taps=int(n_left.sum()))
-
-
-def cost_ops(counts, per_unit):
-    """float32 operations of the cost kernel in its form: a pixel's
-    label-independent sums 6 a left-mask tap (weight x gray, its square,
-    four adds); a hoisted unit 6 a left-mask tap (the weighted right value,
-    its square, the cross product, three adds), a full unit 12 an evaluated
-    tap (also the four left-hand sums and the count); ``per_unit`` a unit
-    for the cost (and the WTA update)."""
-    return (6 * counts["left_taps"] + 6 * counts["hoisted_taps"]
-            + 12 * counts["full_taps"]
-            + per_unit * (counts["hoisted_units"] + counts["full_units"]))
 
 
 def cost_halo_bytes(shape, radius, n_labels, tile=(32, 4)):
@@ -1202,7 +1169,8 @@ def check_cost(device, tv, warped, wvalid, cfg, reps, plain_reps):
                 source="stereoreconstruction_tpu_torch/csrc/cost_wta.cu",
                 replaces="stereoreconstruction_tpu/ops/pallas_ncc.py:158",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=by, library_ms=None, paths=("twoview",))
+                bound_by=by, library_ms=None,
+                paths=("twoview", "twoview_rows", "twoview_pairs"))
 
 
 def check_cost_volume(device, tv, warped, wvalid, cfg, reps, plain_reps):
@@ -1370,7 +1338,8 @@ def check_sampler(device, sampled, reps, plain_reps):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=by, library_ms=library_ms,
                 paths=("mvs", "mvs_mrf", "twoview", "twoview_mrf",
-                       "twoview_sad"))
+                       "twoview_sad", "twoview_rows", "mvs_slabs",
+                       "twoview_pairs"))
 
 
 def profile_shimmed(device, title, module, stages, call):
@@ -2912,6 +2881,380 @@ def verbs_phase(device, rig2, true_depth, scene_rgbs, ply):
     return launches, {k: round(v, 3) for k, v in times.items()}
 
 
+# --------------------------------------------------------------------------
+# The sharded engines over torch.distributed (parallel/; phase 23)
+# --------------------------------------------------------------------------
+
+SHARD_TIMEOUT = 240.0       # seconds a spawned world may take in all
+BA_SCHUR_RTOL = 1e-12       # all-reduced Schur blocks, against unsharded
+# the kernels each sharded path must launch on every rank
+PATH_KERNELS.update({
+    "twoview_rows": PATH_KERNELS["twoview"],
+    "twoview_pairs": PATH_KERNELS["twoview"],
+    "mvs_slabs": PATH_KERNELS["mvs"],
+    "mvs_slabs_topk": ("mvs_sweep_topk",),
+})
+
+
+def bit_equal(a, b):
+    """Same shape and values, NaN equal to NaN (inf to inf)."""
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and bool(np.array_equal(a, b, equal_nan=True))
+
+
+def rank_launches(path, rep, exact=None):
+    """Check one rank's launches of a sharded path: every kernel of the
+    path launched (and ``exact``'s kernels that many times); returns the
+    counts of those kernels."""
+    got = {k: rep["launches"][k] for k in PATH_KERNELS[path]}
+    if not all(v > 0 for v in got.values()) or any(
+            rep["launches"][k] != n for k, n in (exact or {}).items()):
+        raise AssertionError(f"rank {rep['rank']}'s {path} path launched "
+                             f"{rep['launches']}, expected {exact} and "
+                             f"every one of {PATH_KERNELS[path]}")
+    return got
+
+
+def shard_world(device, n, backend, tasks):
+    """``tasks`` on a spawned world of ``n`` ranks (launcher.run_local), or
+    for ``n`` = 1 in this process, joined to a process group of its own for
+    the run; returns each rank's results and the world's wall seconds."""
+    import torch.distributed as dist
+
+    from stereoreconstruction_tpu_torch.parallel import launcher, programs
+
+    t0 = time.perf_counter()
+    if n == 1:
+        with tempfile.TemporaryDirectory() as tmp:
+            dist.init_process_group(backend, init_method=f"file://{tmp}/pg",
+                                    rank=0, world_size=1)
+            try:
+                res = [programs.run_tasks(tasks)]
+            finally:
+                dist.destroy_process_group()
+    else:
+        res = launcher.run_local(programs.run_tasks, (tasks,), world_size=n,
+                                 backend=backend, timeout=SHARD_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for rank in res:
+        for rep in rank:
+            if rep is not None and (rep["jax_loaded"]
+                                    or rep["backend"] != backend):
+                raise AssertionError(f"rank {rep['rank']}: backend "
+                                     f"{rep['backend']}, JAX loaded "
+                                     f"{rep['jax_loaded']}")
+    print(f"  world of {n} {backend} ranks: {wall:.3f} s"
+          + (" with the spawn" if n > 1 else " in this process"))
+    return res, wall
+
+
+def check_rows(title, reps, want, radius):
+    """Row-sharded maps of every rank bit-equal to the unsharded ones, each
+    rank's two blocks (left, right) those of the scaling model; kernels 1,
+    3, 4 and 5 launched on every rank."""
+    from stereoreconstruction_tpu_torch.parallel.scaling import row_blocks
+
+    model = row_blocks(want[0].shape[0], len(reps), radius + 1)
+    for rep, b in zip(reps, model):
+        ok = (bit_equal(rep["left"][0], want[0])
+              and bit_equal(rep["right"][0], want[1]))
+        launches = rank_launches("twoview_rows", rep)
+        print(f"  {title} rank {rep['rank']} ({rep['device']}, blocks "
+              f"(row0, rows) {rep['blocks']}): {rep['seconds']:.3f} s, "
+              f"bit-equal {ok}, launches {launches}")
+        if not ok:
+            raise AssertionError(f"{title}: rank {rep['rank']}'s maps "
+                                 "differ from the unsharded kernel path")
+        if rep["blocks"] != [(b["row0"], b["block_rows"])] * 2:
+            raise AssertionError(f"{title}: rank {rep['rank']} swept "
+                                 f"{rep['blocks']}, the model has {b}")
+    return sum_launches(reps)
+
+
+def check_slabs(title, reps, want, want_topk, n_dep):
+    """Depth-sharded MVS depths (and view 0's top-K lists) of every rank
+    bit-equal to the unsharded ones; kernel 2 launched once a view a rank
+    with that rank's label0."""
+    slab = N_LABELS // n_dep
+    for rep in reps:
+        r = rep["rank"]
+        tk = rep["topk"]
+        ok = bit_equal(rep["depths"], want)
+        ok_k = (bit_equal(tk["ncc"], want_topk[0])
+                and bit_equal(tk["depth"], want_topk[1]))
+        launches = rank_launches("mvs_slabs", rep,
+                                 exact={"mvs_sweep": N_VIEWS})
+        rank_launches("mvs_slabs_topk", tk, exact={"mvs_sweep_topk": 1})
+        label0s = rep["mvs_sweep_label0"]
+        print(f"  {title} rank {r} ({rep['device']}): {rep['seconds']:.3f} s "
+              f"(view 0 top-K {tk['seconds']:.3f} s), depths bit-equal "
+              f"{ok}, top-K equal {ok_k}, launches {launches}, kernel 2 "
+              f"label0 {sorted(set(label0s))} x {len(label0s)}, top-K "
+              f"label0 {tk['mvs_sweep_label0']}")
+        if not (ok and ok_k):
+            raise AssertionError(f"{title}: rank {r}'s depths or top-K "
+                                 "lists differ from the unsharded path")
+        if (label0s != [r * slab] * N_VIEWS
+                or tk["mvs_sweep_label0"] != [r * slab]):
+            raise AssertionError(f"{title}: rank {r} launched kernel 2 "
+                                 f"with label0 {label0s}, "
+                                 f"{tk['mvs_sweep_label0']}")
+    total = sum_launches(reps)
+    topk = sum_launches([rep["topk"] for rep in reps])
+    return {k: total[k] + topk[k] for k in total}
+
+
+def check_schur(title, reps, want):
+    """All-reduced Schur blocks of every rank within BA_SCHUR_RTOL of the
+    unsharded blocks."""
+    names = ("U", "Vb", "W", "g_c", "g_p", "cost")
+    for rep in reps:
+        errs = [float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-300))
+                for g, w in zip(rep["blocks"], want)]
+        print(f"  {title} rank {rep['rank']}: {rep['n_obs']} observations, "
+              f"{rep['seconds']:.4f} s, relative error by block "
+              + ", ".join(f"{n} {e:.2e}" for n, e in zip(names, errs)))
+        if not max(errs) <= BA_SCHUR_RTOL:
+            raise AssertionError(f"{title}: rank {rep['rank']}'s blocks "
+                                 f"are off by {max(errs)}")
+
+
+def sum_launches(reps):
+    return {k: sum(rep["launches"][k] for rep in reps)
+            for k in reps[0]["launches"]}
+
+
+def torchrun(argv, n, timeout=300):
+    """``python -m torch.distributed.run --standalone`` of the port's CLI
+    on ``n`` ranks in its own session (killed whole on timeout); returns
+    (seconds, stderr)."""
+    import signal
+    import sys
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(n), "-m",
+           "stereoreconstruction_tpu_torch.cli", *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun {' '.join(argv[:1])} failed "
+                             f"({proc.returncode}):\n{out}\n{err}")
+    return time.perf_counter() - t0, err
+
+
+def cli_shard_phase(device, scene_rgbs, cams_np):
+    """``cli stereo --two-view --shard row`` on views 0-1 launched by
+    torchrun on 2 ranks: the npz bit-equal to the same verb unsharded in
+    this process (``--shard none``), the backend and routing notes on
+    stderr.  Returns the launch's seconds."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = scene_project(tmp, scene_rgbs[:2], cams_np[:2])
+        base = ["stereo", scene, "--image-set", "scene", "--scale",
+                str(SCALE), "--depth-levels", str(N_LABELS), "--min-depth",
+                str(MIN_DEPTH), "--max-depth", str(MAX_DEPTH),
+                "--cross-check", str(CROSS_CHECK)]
+        for name, extra, note in (
+                ("two-view --shard row", ["--two-view", "--shard", "row"],
+                 "row-sharded over 2 devices"),):
+            d = os.path.join(tmp, name.replace(" ", "_"))
+            argv = base + ["-o", d, "--save-npz", os.path.join(d, "d.npz")]
+            wall, err = torchrun(argv + extra, 2)
+            ref = d + "_unsharded"
+            t_ref, _ = cli_run(device, base + [
+                "-o", ref, "--save-npz", os.path.join(ref, "d.npz"),
+                "--shard", "none"] + extra[:-2])
+            same = bit_equal(np.load(os.path.join(d, "d.npz"))["depths"],
+                             np.load(os.path.join(ref, "d.npz"))["depths"])
+            backend = [ln for ln in err.splitlines()
+                       if ln.startswith("torch.distributed:")]
+            print(f"  torchrun cli stereo {name} on 2 ranks: {wall:.3f} s "
+                  f"(unsharded in-process {t_ref:.3f} s); {backend}; "
+                  f"npz bit-equal {same}")
+            if not (same and note in err and backend):
+                raise AssertionError(f"torchrun cli stereo {name}: npz "
+                                     f"bit-equal {same}, stderr:\n{err}")
+            out[f"torchrun {name}"] = wall
+    return out
+
+
+def shard_phase(device, rig, scaling_rows, scene_rgbs, cams_np):
+    """Phase 23: the sharded engines (parallel/) against the unsharded ones
+    on the card, over 2 and 4 ranks of a spawned world of 4 (gloo on one
+    card: NCCL needs a card a rank) and a world of 1 on NCCL (in this
+    process); the native oracle beside the port's two-view sweep; a
+    torchrun launch of the CLI.
+    Returns each sharded path's launches summed over its ranks and worlds,
+    and the phase's seconds."""
+    from stereoreconstruction_tpu_torch.calib.bundle import schur_blocks
+    from stereoreconstruction_tpu_torch.config import TwoViewConfig
+    from stereoreconstruction_tpu_torch.geometry.camera import (
+        camera_at, stack_cameras)
+    from stereoreconstruction_tpu_torch.parallel.launcher import (
+        choose_backend)
+    from stereoreconstruction_tpu_torch.runtime.native import (
+        native_num_threads, twoview_depth_map_native)
+    from stereoreconstruction_tpu_torch.stereo.multiview import (
+        mvs_depth_maps, mvs_initial_estimate_oneview, mvs_prepare_batched)
+    from stereoreconstruction_tpu_torch.stereo.twoview import (
+        compute_depth_map_oneview, compute_depth_maps)
+
+    print(f"shard phase on {nvidia_smi_line()}; "
+          f"{torch.cuda.device_count()} CUDA device(s)")
+    cams, cfg, rgbs, masks = rig
+    cfg2 = TwoViewConfig(min_depth=MIN_DEPTH, max_depth=MAX_DEPTH,
+                         num_depth_levels=N_LABELS, image_scale=SCALE)
+    times = {}
+
+    # the unsharded references, on the card
+    t0 = time.perf_counter()
+    pairs = ((0, 1), (2, 3))
+    want_pairs = []
+    for a, b in pairs:
+        res = compute_depth_maps(rgbs[a], masks[a], rgbs[b], masks[b],
+                                 cams[a], cams[b], cfg2, method="kernel",
+                                 device=device)
+        want_pairs.append((res.depth_left.cpu().numpy(),
+                           res.depth_right.cpu().numpy()))
+    want_mvs = mvs_depth_maps(rgbs, masks, cams, cfg,
+                              device=device).cpu().numpy()
+    cams_all, cams_nbr, nbr_idx, nbr_valid, refr, dist_ = \
+        mvs_prepare_batched(cams, cfg, torch.float32, device)
+    rgb_t = torch.as_tensor(rgbs, device=device)
+    grays = 0.11 * rgb_t[..., 0] + 0.59 * rgb_t[..., 1] + 0.3 * rgb_t[..., 2]
+    nbr = list(nbr_idx[0])
+    want_topk = [t.cpu().numpy() for t in mvs_initial_estimate_oneview(
+        rgb_t[0], grays[0], masks[0], grays[nbr], masks[nbr],
+        camera_at(cams_all, 0), camera_at(cams_nbr, 0), cfg,
+        enable_refraction=refr, enable_distortion=dist_,
+        nbr_valid=nbr_valid[0], with_topk=True, device=device)]
+    Ks, poses, points, cam_idx, pt_idx, meas = ba_problem()
+    f64 = dict(dtype=torch.float64, device=device)
+    want_schur = [b.cpu().numpy() for b in schur_blocks(
+        torch.as_tensor(poses, **f64), torch.as_tensor(points, **f64),
+        torch.as_tensor(Ks, **f64),
+        torch.as_tensor(cam_idx, device=device),
+        torch.as_tensor(pt_idx, device=device),
+        torch.as_tensor(meas, **f64), len(Ks), len(points))]
+    torch.cuda.synchronize(device)
+    times["unsharded references"] = time.perf_counter() - t0
+
+    a, b = pairs[0]
+    row_args = dict(rgbs_l=rgbs[a:a + 1], masks_l=masks[a:a + 1],
+                    rgbs_r=rgbs[b:b + 1], masks_r=masks[b:b + 1],
+                    cams_l=stack_cameras([cams[a]]),
+                    cams_r=stack_cameras([cams[b]]), cfg=cfg2,
+                    device=device.type)
+    pair_args = dict(rgbs_l=rgbs[[0, 2]], masks_l=masks[[0, 2]],
+                     rgbs_r=rgbs[[1, 3]], masks_r=masks[[1, 3]],
+                     cams_l=stack_cameras([cams[0], cams[2]]),
+                     cams_r=stack_cameras([cams[1], cams[3]]), cfg=cfg2,
+                     device=device.type)
+    mvs_args = dict(rgbs=rgbs, masks=masks, cams=cams, cfg=cfg, topk_view=0,
+                    device=device.type)
+    schur_args = dict(poses=poses, points=points, Ks=Ks, cam_idx=cam_idx,
+                      pt_idx=pt_idx, meas=meas, n_cams=len(Ks),
+                      n_pts=len(points), device=device.type)
+    launches = {p: {} for p in ("twoview_rows", "mvs_slabs",
+                                "twoview_pairs")}
+
+    def add(path, counts):
+        for k, v in counts.items():
+            launches[path][k] = launches[path].get(k, 0) + v
+
+    # a world of 4 runs the 2- and 4-rank gates (ranks beyond a task's
+    # grid or group idle through it); NCCL over 2 ranks has a world of its
+    # own where 2 or 3 cards make the 4-rank world gloo
+    worlds = [(4, choose_backend(device, 4), (2, 4)), (1, "nccl", (1,))]
+    if 2 <= torch.cuda.device_count() < 4:
+        worlds.append((2, "nccl", (2,)))
+    for world_n, backend, sizes in worlds:
+        tasks = []
+        for n in sizes:
+            tasks += [("twoview_rows", n, dict(n_view=1, n_row=n,
+                                                **row_args)),
+                      ("mvs_slabs", n, dict(n_depth=n, **mvs_args))]
+            if n <= 2:
+                tasks.append(("schur", n, dict(n_ranks=n, **schur_args)))
+            if n == 4:
+                tasks.append(("twoview_pairs", n,
+                              dict(n_view=2, n_row=2, **pair_args)))
+        res, wall = shard_world(device, world_n, backend,
+                                [(name, kw) for name, _, kw in tasks])
+        times[f"world of {world_n} ({backend})"] = wall
+        for (name, n, _), reps in zip(tasks, zip(*res)):
+            reps = [r for r in reps if r is not None]
+            if len(reps) != n:
+                raise AssertionError(f"{name}: {len(reps)} ranks "
+                                     f"reported, not {n}")
+            title = f"{n} ranks ({backend})"
+            if name == "twoview_rows":
+                add(name, check_rows(f"row-sharded pair, {title}", reps,
+                                     want_pairs[0], cfg2.window_radius))
+            elif name == "mvs_slabs":
+                add(name, check_slabs(f"depth-sharded MVS, {title}", reps,
+                                      want_mvs, want_topk, n))
+            elif name == "schur":
+                check_schur(f"Schur blocks, {title}", reps, want_schur)
+            else:
+                for rep in reps:
+                    ok = all(bit_equal(rep["depths"][p], np.stack(want))
+                             for p, want in enumerate(want_pairs))
+                    got = rank_launches("twoview_pairs", rep)
+                    print(f"  2 pairs on a 2x2 grid, {title}, rank "
+                          f"{rep['rank']}: {rep['seconds']:.3f} s, "
+                          f"bit-equal per pair {ok}, launches {got}")
+                    if not ok:
+                        raise AssertionError("the batched pairs differ "
+                                             "from the unsharded pairs")
+                add(name, sum_launches(reps))
+    if torch.cuda.device_count() < 2:
+        print("  NCCL over 2 ranks: not run (one CUDA device; the 2- and "
+              "4-rank gates ran on gloo)")
+    print("  row-shard scaling model (parallel/scaling.py, kernel 4's "
+          "operations on the main path's view 0): " + "; ".join(
+              f"{r['n_ranks']} ranks: {r['block_rows']}/{r['tile_rows']} "
+              f"rows, efficiency {r['efficiency']:.4f}, gathers "
+              f"{r['cross_check_gather_bytes']} B" for r in scaling_rows))
+
+    # the native oracle (CPU, float64) beside the port's sweep on the card
+    t0 = time.perf_counter()
+    oracle = twoview_depth_map_native(rgbs[0], masks[0], rgbs[1], masks[1],
+                                      cams[0], cams[1], cfg2)
+    times["oracle"] = time.perf_counter() - t0
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    port = compute_depth_map_oneview(
+        rgb_t[0], grays[0], masks[0], grays[1], masks[1], cams[0],
+        cams[1], cfg2, device=device, enable_distortion=False)
+    torch.cuda.synchronize(device)
+    times["port view 0 (card)"] = time.perf_counter() - t0
+    port = port.cpu().numpy()
+    fin = np.isfinite(port) & np.isfinite(oracle)
+    diff = np.abs(port[fin] - oracle[fin])
+    print(f"  native oracle (twoview_oracle.cpp, {native_num_threads()} "
+          f"threads): view 0 at {rgbs.shape[1]}x{rgbs.shape[2]} "
+          f"(image_scale {SCALE}), {N_LABELS} labels, r "
+          f"{cfg2.window_radius}: {times['oracle']:.3f} s on the CPU, port "
+          f"{times['port view 0 (card)']:.4f} s on the card; finite in "
+          f"both {fin.mean():.4f}, median |port - oracle| there "
+          f"{float(np.median(diff)) if diff.size else float('nan'):.4g} "
+          f"(label step at z={TARGET_Z}: {twoview_step(cfg2):.4f})")
+    times.update(cli_shard_phase(device, scene_rgbs, cams_np))
+    print("shard phase stages, s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in times.items()))
+    return launches, {k: round(v, 3) for k, v in times.items()}
+
+
 def kernel_name(mangled):
     """The innermost name of a mangled nested kernel name, with its integer
     template arguments: '_ZN12_GLOBAL__N_116mvs_sweep_kernelILi2ELi9EEEv...'
@@ -3021,8 +3364,9 @@ def main():
 
     weight_rows = check_weights(
         device, torch.as_tensor(rig[2][0], device=device),
-        {cfg.window_radius: ("mvs", "mvs_mrf"),
-         cfg2.window_radius: ("twoview", "twoview_mrf", "twoview_sad")},
+        {cfg.window_radius: ("mvs", "mvs_mrf", "mvs_slabs"),
+         cfg2.window_radius: ("twoview", "twoview_mrf", "twoview_sad",
+                              "twoview_rows", "twoview_pairs")},
         reps=10)
     inputs, nv = sweep_inputs(device, rig)
     rows = [weight_rows[cfg.window_radius],
@@ -3047,6 +3391,10 @@ def main():
                         plain_reps=2),
              check_cost_volume(device, tv, warped, wvalid, cfg2, reps=10,
                                plain_reps=2)]
+    # phase 23's scaling model, from kernel 4's work on view 0 by row
+    scaling_rows = rowshard_scaling(
+        cost_row_ops(tv["left_valid"], tv["weights"], wvalid,
+                     cfg2.window_radius), w, cfg2.window_radius)
     del tv, warped, wvalid
     launches["twoview"], wta_coverages = twoview_main_path(
         device, rig2, true_depth[:2])
@@ -3063,7 +3411,6 @@ def main():
     rows += check_sweep_radii(device, 10)
     rows += check_cost_radii(device, 10)
     print(f"instances gated in {time.perf_counter() - t0:.1f} s")
-    del rig
 
     t0 = time.perf_counter()
     calib = {"rig": calib_rig_phase(device)}
@@ -3090,12 +3437,19 @@ def main():
     print(f"verbs phase in {time.perf_counter() - t0:.1f} s: "
           + json.dumps(verbs))
     work.cleanup()
+    t0 = time.perf_counter()
+    shard_launches, shard = shard_phase(device, rig, scaling_rows,
+                                        scene_rgbs, cams_np)
+    launches.update(shard_launches)
+    print(f"shard phase in {time.perf_counter() - t0:.1f} s: "
+          + json.dumps(shard))
 
     # a row's launches: its counter's count over the main paths that run
     # it, each read right after its own run (kernel 1 has a row for each
-    # radius, and each path runs it at its config's one radius)
+    # radius, and each path runs it at its config's one radius); a sharded
+    # path's counts are summed over its ranks and worlds
     for row in rows:
-        row["launches"] = sum(launches[p][row["counter"]]
+        row["launches"] = sum(launches[p].get(row["counter"], 0)
                               for p in row["paths"])
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

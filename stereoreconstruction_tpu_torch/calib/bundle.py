@@ -85,6 +85,21 @@ def schur_blocks(poses, points, prob_Ks, cam_idx, pt_idx, meas,
     return U, Vb, W, g_c, g_p, cost
 
 
+def schur_blocks_allreduce(poses, points, prob_Ks, cam_idx, pt_idx, meas,
+                           n_cams: int, n_pts: int, group=None):
+    """Observation-sharded variant (the JAX package's
+    ``schur_blocks_psum``): this rank's observation shard through
+    ``schur_blocks``, then each block summed over the ranks of ``group``
+    (a ``torch.distributed`` process group; None: the default group, or a
+    single process without one).  Every rank gets the blocks of the whole
+    observation set, in the dtype of its inputs (float64 on the
+    calibration path)."""
+    from ..parallel.collectives import all_reduce_sum
+    blocks = schur_blocks(poses, points, prob_Ks, cam_idx, pt_idx, meas,
+                          n_cams, n_pts)
+    return tuple(all_reduce_sum(b, group) for b in blocks)
+
+
 def _solve_schur(U, Vb, W, g_c, g_p, lam, n_cams, fixed_cams=None):
     """Damped Schur solve -> (dc [V,6], dp [P,3]).
 

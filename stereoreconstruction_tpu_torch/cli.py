@@ -49,12 +49,22 @@ in the JAX package's CLI, writes no PLY.  ``--mrf`` runs either engine's
 MRF flow (multi-view: top-K hypotheses + TRW-S; two-view: BP over the cost
 volume).  ``--resume`` keeps each view's initial estimate under
 ``<output>/checkpoint/`` and loads the views already computed with the
-same config (multi-view only, as in the JAX package).  Every verb with a
-project takes ``--trace [JSON]`` (a stage-timer and metric summary on
-stderr, and with a path the tracer's JSON there) and ``--device-trace
-LOGDIR`` (a torch.profiler Chrome trace of the whole verb,
-``LOGDIR/trace.json``; ``runtime.trace.device_op_table`` reads its kernel
-times).
+same config (multi-view only, as in the JAX package).  ``--shard
+{auto,none,row,depth}`` shards ``stereo`` over the ranks of a torchrun
+launch (parallel/launcher.py: NCCL when every local rank has a card of its
+own, else gloo on one card): row blocks for ``--two-view``, depth slabs
+for MVS; ``auto`` shards whenever the world has more than one rank.  Rank
+0 alone writes the PNGs, the npz and the PLY:
+
+  python -m torch.distributed.run --nproc-per-node 4 \
+      -m stereoreconstruction_tpu_torch.cli stereo project.xml \
+      --image-set bunny --two-view --shard row -o out/
+
+Every verb with a project takes ``--trace [JSON]`` (a stage-timer and
+metric summary on stderr, and with a path the tracer's JSON there) and
+``--device-trace LOGDIR`` (a torch.profiler Chrome trace of the whole
+verb, ``LOGDIR/trace.json``; ``runtime.trace.device_op_table`` reads its
+kernel times).
 """
 
 from __future__ import annotations
@@ -64,12 +74,6 @@ import os
 import sys
 
 import numpy as np
-
-# Options of the JAX package's stereo verb that this port does not run yet,
-# with the part of the port that will bring each.
-_NOT_PORTED = (
-    ("shard", "--shard", "the multi-GPU sharding slice"),
-)
 
 
 def cmd_info(args):
@@ -192,25 +196,60 @@ def cmd_refraction(args):
     return 0
 
 
-def cmd_stereo(args):
-    for attr, flag, later in _NOT_PORTED:
-        if getattr(args, attr):
-            print(f"{flag} is not ported to PyTorch yet: it comes with "
-                  f"{later} (ROADMAP.md)", file=sys.stderr)
-            return 2
+def _shard_route(args, n_dev: int, say) -> str:
+    """The JAX package's routing of ``--shard`` (its cli.py cmd_stereo):
+    the engine to shard ("row", "depth" or "none"), with its stderr notes
+    on the values that do not apply."""
+    shard = args.shard
+    if shard == "auto":
+        shard = ("row" if args.two_view else "depth") if n_dev > 1 \
+            else "none"
+    if args.mrf and shard != "none":
+        say("--mrf runs unsharded (dense-label volume)")
+        shard = "none"
+    # explicit but inapplicable --shard values fall through to the
+    # unsharded path, saying so
+    if shard == "depth" and args.two_view:
+        say("--shard depth does not apply to --two-view; "
+            "running unsharded (use --shard row)")
+    if shard == "row" and not args.two_view:
+        say("--shard row does not apply to MVS; running unsharded "
+            "(use --shard depth)")
+    if shard in ("row", "depth") and n_dev == 1:
+        say(f"--shard {shard} requested but only 1 device is "
+            "visible; running unsharded")
+    if (shard == "depth" and not args.two_view and n_dev > 1
+            and args.method == "exact"):
+        say("--shard depth has no 'exact' slab backend; running the "
+            "kernel method per slab")
+    return shard
 
+
+def cmd_stereo(args):
     from .config import MultiViewConfig, TwoViewConfig
     from .data.images import load_image
     from .data.ply import write_ply
     from .data.project_io import load_project
     from .device import resolve_device
+    from .parallel import launcher
     from .runtime.checkpoint import DepthCheckpoint
     from .runtime.trace import metric as trace_metric
     from .stereo.multiview import mvs_depth_maps, depth_maps_to_ply
     from .stereo.twoview import compute_depth_maps
     from .viz.render import save_depth_image
 
-    device = resolve_device(args.device)
+    # join torchrun's process group (a no-op for one process): the sharded
+    # engines below see every rank; rank 0 alone writes
+    launcher.initialize_distributed(args.device)
+    device = resolve_device(launcher.rank_device(args.device))
+    writer = launcher.is_coordinator()
+
+    def say(msg):
+        if writer:
+            print(msg, file=sys.stderr)
+
+    n_dev = launcher.world_size()
+    shard = _shard_route(args, n_dev, say)
     proj = load_project(args.project)
     iset = proj.image_sets[args.image_set]
     cam_ids = args.cameras or sorted(
@@ -220,7 +259,8 @@ def cmd_stereo(args):
     imgs = [load_image(iset.default_image_for_camera(c).file, args.scale)
             for c in cam_ids]
     outdir = args.output or "."
-    os.makedirs(outdir, exist_ok=True)
+    if writer:
+        os.makedirs(outdir, exist_ok=True)
 
     if args.two_view:
         if len(imgs) < 2:
@@ -231,12 +271,24 @@ def cmd_stereo(args):
                             max_depth=args.max_depth,
                             num_depth_levels=args.depth_levels,
                             image_scale=args.scale)
-        res = compute_depth_maps(
-            imgs[0].rgb, imgs[0].mask, imgs[1].rgb, imgs[1].mask, cams[0],
-            cams[1], cfg, method=args.method, use_mrf=args.mrf,
-            device=device)
-        depths = np.stack([res.depth_left.cpu().numpy(),
-                           res.depth_right.cpu().numpy()])
+        if shard == "row" and n_dev > 1:
+            from .geometry.camera import stack_cameras
+            from .parallel.rowshard import twoview_pairs_rowsharded
+            grid = launcher.make_grid(1, n_dev)
+            say(f"row-sharded over {n_dev} devices")
+            dl, dr = twoview_pairs_rowsharded(
+                grid, imgs[0].rgb[None], imgs[0].mask[None],
+                imgs[1].rgb[None], imgs[1].mask[None],
+                stack_cameras([cams[0]]), stack_cameras([cams[1]]), cfg,
+                method=args.method, device=device)
+            depths = np.stack([dl[0].cpu().numpy(), dr[0].cpu().numpy()])
+        else:
+            res = compute_depth_maps(
+                imgs[0].rgb, imgs[0].mask, imgs[1].rgb, imgs[1].mask,
+                cams[0], cams[1], cfg, method=args.method,
+                use_mrf=args.mrf, device=device)
+            depths = np.stack([res.depth_left.cpu().numpy(),
+                               res.depth_right.cpu().numpy()])
         style = "twoview"
     else:
         cfg = MultiViewConfig(min_depth=args.min_depth,
@@ -244,13 +296,28 @@ def cmd_stereo(args):
                               num_depth_levels=args.depth_levels,
                               cross_check_threshold=args.cross_check,
                               image_scale=args.scale, use_mrf=args.mrf)
-        ckpt = (DepthCheckpoint(os.path.join(outdir, "checkpoint"), cfg)
+        depth_group = None
+        if shard == "depth" and n_dev > 1:
+            from .parallel.collectives import group_rank
+            from .parallel.depthshard import make_depth_group
+            n_dep = max(d for d in range(1, n_dev + 1)
+                        if args.depth_levels % d == 0)
+            if n_dep > 1:
+                depth_group = make_depth_group(n_dep)
+                say(f"depth-slab sharded over {n_dep} devices")
+                if group_rank(depth_group) < 0:
+                    return 0          # a rank beyond the depth group idles
+        ckpt = (DepthCheckpoint(os.path.join(outdir, "checkpoint"), cfg,
+                                read_only=not writer)
                 if args.resume else None)
         depths = mvs_depth_maps(
             np.stack([i.rgb for i in imgs]), np.stack([i.mask for i in imgs]),
             cams, cfg, method=args.method, checkpoint=ckpt,
-            view_ids=cam_ids, device=device).cpu().numpy()
+            view_ids=cam_ids, device=device,
+            depth_group=depth_group).cpu().numpy()
         style = "mvs"
+    if not writer:
+        return 0
 
     if args.save_npz:
         np.savez_compressed(args.save_npz, depths=depths,
@@ -604,7 +671,11 @@ def main(argv=None):
                     help="checkpoint each view's depth map under "
                          "<output>/checkpoint/ and skip views already "
                          "computed with the same config (multi-view)")
-    sp.add_argument("--shard", default=None)
+    sp.add_argument("--shard", choices=("auto", "none", "row", "depth"),
+                    default="auto",
+                    help="shard over the ranks of a torchrun launch: row "
+                         "blocks for --two-view, depth slabs for MVS; auto "
+                         "= shard when the world has more than one rank")
     sp.set_defaults(fn=cmd_stereo)
 
     sp = sub.add_parser("hdr")
@@ -679,13 +750,19 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     import contextlib
+    from .parallel import launcher
     from .runtime import trace as tracing
+    # a sharded stereo joins its process group before anything writes:
+    # rank 0 alone keeps the traces
+    if args.cmd == "stereo":
+        launcher.initialize_distributed(args.device)
+    writer = launcher.is_coordinator()
     with contextlib.ExitStack() as stack:
-        if getattr(args, "device_trace", None):
+        if getattr(args, "device_trace", None) and writer:
             stack.enter_context(tracing.device_trace(args.device_trace))
         with tracing.trace(args.cmd):
             rc = args.fn(args) or 0
-    if getattr(args, "trace", None) is not None:
+    if getattr(args, "trace", None) is not None and writer:
         print(tracing.summary(), file=sys.stderr)
         if args.trace != "-":
             tracing.get_tracer().dump_json(args.trace)
@@ -693,4 +770,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    rc = main()
+    from .parallel.launcher import shutdown
+    shutdown()
+    sys.exit(rc)

@@ -78,7 +78,11 @@ def build_all() -> Dict[str, ctypes.CDLL]:
             failed.append(f"{name}.cu:\n{log}")
             tmp.unlink(missing_ok=True)
         else:
-            out.with_suffix(".log").write_text(log)
+            # the log first, each renamed into place: ranks that reach the
+            # first use at once never read a partial file
+            log_tmp = tmp.with_suffix(".log")
+            log_tmp.write_text(log)
+            os.replace(log_tmp, out.with_suffix(".log"))
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))

@@ -37,17 +37,24 @@ def config_fingerprint(cfg) -> str:
 
 
 class DepthCheckpoint:
-    """Per-view depth-map store rooted at a directory."""
+    """Per-view depth-map store rooted at a directory.
 
-    def __init__(self, directory: str, cfg=None):
+    ``read_only``: load what the directory holds and save nothing (the
+    ranks of a sharded run other than the one that writes)."""
+
+    def __init__(self, directory: str, cfg=None, *, read_only=False):
         self.dir = directory
         self.fingerprint = config_fingerprint(cfg) if cfg is not None else ""
-        os.makedirs(directory, exist_ok=True)
+        self.read_only = read_only
+        if not read_only:
+            os.makedirs(directory, exist_ok=True)
 
     def _path(self, view_id: str) -> str:
         return os.path.join(self.dir, f"depth_{view_id}.npz")
 
-    def save(self, view_id: str, depth) -> str:
+    def save(self, view_id: str, depth) -> Optional[str]:
+        if self.read_only:
+            return None
         depth = np.asarray(depth)
         path = self._path(view_id)
         tmp = path + ".tmp"

@@ -43,12 +43,16 @@ def depth_labels_uniform(min_depth, max_depth, num_levels: int,
 
 def pixel_rays(cam: Camera, height: int, width: int, image_scale: float,
                *, enable_refraction=True, enable_distortion=True,
-               dtype=torch.float32):
+               dtype=torch.float32, row0: int = 0):
     """Unprojected rays for every pixel centre of the scaled image, on the
     camera's device.  Returns (origins [H, W, 3], directions [H, W, 3]) in
-    world coords (with a leading camera batch for a broadcast Camera)."""
+    world coords (with a leading camera batch for a broadcast Camera).
+
+    ``row0`` offsets the pixel rows: the row-sharded engine's block of
+    global rows [row0, row0 + height)."""
     device = cam.K.device
-    ys = (torch.arange(height, dtype=dtype, device=device) + 0.5) \
+    ys = (torch.tensor(row0, dtype=dtype, device=device)
+          + torch.arange(height, dtype=dtype, device=device) + 0.5) \
         / image_scale
     xs = (torch.arange(width, dtype=dtype, device=device) + 0.5) \
         / image_scale

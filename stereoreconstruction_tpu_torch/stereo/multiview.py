@@ -354,7 +354,7 @@ def mvs_depth_maps(rgbs, masks, cams: Sequence[Camera],
                    enable_refraction=True, enable_distortion=True,
                    method: str = "auto", dtype=torch.float32,
                    checkpoint=None, view_ids: Sequence[str] = None,
-                   device=None):
+                   device=None, depth_group=None):
     """Full MultiViewStereo::runTask flow: the WTA path, or with
     ``cfg.use_mrf`` the USE_MRF flow (per view the top-K hypothesis volume,
     ``trws_optimize`` with ``cfg.mrf_max_iters`` and ``labels_to_depth``,
@@ -371,6 +371,16 @@ def mvs_depth_maps(rgbs, masks, cams: Sequence[Camera],
     estimate is saved as it completes, so an interrupted run resumes
     mid-task.  The cross-check then runs on the stacked maps.  view_ids
     names the views in the store (defaults to the index).
+
+    depth_group: a ``torch.distributed`` process group (``parallel/``'s
+    depth group; this process one of its ranks) over which each view's
+    depth sweep is slab-sharded
+    (parallel/depthshard.mvs_initial_estimate_depthsharded; requires
+    ``cfg.num_depth_levels`` divisible by the group's size).  Per-view
+    results equal the unsharded sweep's bit for bit.  As in the JAX
+    package, the exact method has no slab backend (the kernel method runs
+    per slab) and ``cfg.use_mrf`` runs unsharded; a checkpoint works with
+    a depth group.  Every rank of the group must make the same call.
     """
     dev = resolve_device(device)
     cams_all, cams_nbr, nbr_idx, nbr_valid, refr, dist = \
@@ -396,12 +406,19 @@ def mvs_depth_maps(rgbs, masks, cams: Sequence[Camera],
                 continue
         with trace(f"mvs/view{i}/initial_estimate"):
             nbr = torch.as_tensor(nbr_idx[i], device=dev)
-            est = mvs_initial_estimate_oneview(
-                rgbs[i], grays[i], masks[i], grays[nbr], masks[nbr],
-                camera_at(cams_all, i), camera_at(cams_nbr, i), cfg,
-                enable_refraction=enable_refraction,
-                enable_distortion=enable_distortion, method=method,
-                nbr_valid=nbr_valid[i], with_topk=cfg.use_mrf, device=dev)
+            view_args = (rgbs[i], grays[i], masks[i], grays[nbr], masks[nbr],
+                         camera_at(cams_all, i), camera_at(cams_nbr, i), cfg)
+            kw = dict(enable_refraction=enable_refraction,
+                      enable_distortion=enable_distortion,
+                      nbr_valid=nbr_valid[i], device=dev)
+            if depth_group is not None and not cfg.use_mrf:
+                from ..parallel.depthshard import (
+                    mvs_initial_estimate_depthsharded)
+                est = mvs_initial_estimate_depthsharded(
+                    depth_group, *view_args, method="kernel", **kw)
+            else:
+                est = mvs_initial_estimate_oneview(
+                    *view_args, method=method, with_topk=cfg.use_mrf, **kw)
             if cfg.use_mrf:
                 top_ncc, top_depth = est
                 res = trws_optimize(top_ncc, top_depth, cfg,

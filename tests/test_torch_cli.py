@@ -162,12 +162,16 @@ def test_cli_two_view_mrf_writes_library_depths(project, capsys):
     assert np.isfinite(want).any()
 
 
-@pytest.mark.parametrize("flag", [["--shard", "depth"]])
+@pytest.mark.parametrize("flag", [["--shard", "rows"]])
 def test_cli_stereo_refuses_unported_options(project, capsys, flag):
+    """Every option of the JAX package's stereo verb is ported (``--shard``
+    with its own tests in test_torch_parallel.py); a value outside its
+    choices is refused before anything is written."""
     path = str(project / "p.xml")
-    assert cli.main(["stereo", path, "-o", str(project / "x")] + ARGS
-                    + flag) != 0
-    assert "not ported" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["stereo", path, "-o", str(project / "x")] + ARGS + flag)
+    assert exc.value.code != 0
+    assert "invalid choice" in capsys.readouterr().err
     assert not os.path.exists(project / "x")
 
 

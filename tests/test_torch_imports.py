@@ -55,7 +55,15 @@ def test_importing_every_module_loads_no_jax():
             "stereoreconstruction_tpu_torch.runtime.tasks",
             "stereoreconstruction_tpu_torch.runtime.capture",
             "stereoreconstruction_tpu_torch.runtime.native",
-            "stereoreconstruction_tpu_torch.runtime.native.build"} <= set(mods)
+            "stereoreconstruction_tpu_torch.runtime.native.build",
+            "stereoreconstruction_tpu_torch.runtime.native.bindings",
+            "stereoreconstruction_tpu_torch.parallel.launcher",
+            "stereoreconstruction_tpu_torch.parallel.sharding",
+            "stereoreconstruction_tpu_torch.parallel.rowshard",
+            "stereoreconstruction_tpu_torch.parallel.depthshard",
+            "stereoreconstruction_tpu_torch.parallel.collectives",
+            "stereoreconstruction_tpu_torch.parallel.scaling",
+            "stereoreconstruction_tpu_torch.parallel.programs"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
