@@ -63,7 +63,7 @@ SWEEP_VARIANTS = [
       # the static shared array fits 48 KB up to r = 4: build r = 2 only
       (SWEEP_RADII, "#define SWEEP_RADII(X) X(2)")], False),
     ("top-K 9 through the run-time list (<2, 0>)",
-     [("  else if (R == 2 && n_topk == 9)\n", "  else if (false)\n")],
+     [("  else if (R == 2 && list_k == 9)\n", "  else if (false)\n")],
      False),
     ("block 128 x 1",
      [("kBlockX = 32;", "kBlockX = 128;"), ("kBlockY = 4;", "kBlockY = 1;")],
@@ -409,7 +409,7 @@ def main():
                     row["bit_equal"], extra = check()
                     row.update(extra)
                 if hasattr(lib, "cost_wta_blocks_per_sm"):
-                    row["blocks_per_sm"] = [lib.cost_wta_blocks_per_sm(v, 5)
+                    row["blocks_per_sm"] = [lib.cost_wta_blocks_per_sm(v, 5, 0)
                                             for v in (0, 1)]
                 row["ms"] = times()
                 ok = timing_only or row["bit_equal"]

@@ -73,7 +73,8 @@
 // weight planes take (2r+1)^2 x 128 x 4 B of a block's shared memory (62 KB
 // at r = 5, 115 KB at r = 7: 135 KB a block with the halos, so one block an
 // SM there); cost_wta_smem_bytes and cost_wta_blocks_per_sm report both for
-// each r.
+// each r.  Any other radius >= 1 takes the run-time-radius instance below,
+// which reads its weights and warp samples from device memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -513,17 +514,154 @@ int blocks_per_sm() {
   return occ == cudaSuccess ? n : 0;
 }
 
+// ---------------------------------------------------------------------------
+// The run-time-radius instance (r >= 8, any radius).  At r = 8 the
+// templates' weight planes alone take 289 x 128 x 4 B = 148 KB of a
+// block's shared memory, and from r = 10 the block no longer fits.  This
+// instance keeps nothing in shared memory: one thread a pixel, 32 x 4
+// pixels a block as the templates, the radius a kernel argument.  It walks
+// the labels in chunks of kRtL; for each chunk it walks the window's taps
+// (rows outer, columns inner) and reads each tap's weight from its
+// [S*S, H, W] plane (coalesced across a warp), the left gray and validity,
+// and each label's warp sample and validity straight from device memory
+// (neighbouring pixels and labels share them in L1).  Every label sums all
+// seven sums over the taps where its left mask and warp sample hold, a
+// failing tap taking weight +0 as in the templates' full pass, so each sum
+// is the plain version's in its order.  (The templates' hoisted pass gives
+// the same sums for a label whose every left-mask tap has a valid sample;
+// this instance does not split the two.)  The epilogue, the WTA carry and
+// the volume's stores are the templates'.
+// ---------------------------------------------------------------------------
+
+constexpr int kRtL = 8;            // labels a chunk of the run-time instance
+
+template <bool kVolume>
+__global__ void __launch_bounds__(kThreads)
+cost_wta_rt_kernel(const float* __restrict__ depths,
+                   const float* __restrict__ warped,
+                   const uint8_t* __restrict__ wvalid,
+                   const float* __restrict__ gray_ref,
+                   const uint8_t* __restrict__ left_valid,
+                   const float* __restrict__ weights,
+                   float* __restrict__ min_out, float* __restrict__ second_out,
+                   float* __restrict__ best_out, int H, int W, int D, int rad,
+                   float max_color_diff, float bad_ret) {
+  const int x = blockIdx.x * kTW + threadIdx.x % kTW;
+  const int y = blockIdx.y * kTH + threadIdx.x / kTW;
+  if (x >= W || y >= H) return;
+  const int S = 2 * rad + 1;
+  const size_t HWp = (size_t)H * W;
+  const size_t p = (size_t)y * W + x;
+
+  float min_c = INFINITY, second = INFINITY, best = NAN;
+  for (int c0 = 0; c0 < D; c0 += kRtL) {
+    // labels of the chunk whose own warp sample is valid (none past D)
+    uint32_t centre = 0u;
+    for (int l = 0; l < kRtL; ++l)
+      if (c0 + l < D && wvalid[(c0 + l) * HWp + p]) centre |= 1u << l;
+    float cost[kRtL];
+    for (int l = 0; l < kRtL; ++l) cost[l] = INFINITY;
+    if (centre) {
+      float sw[kRtL], sl[kRtL], sr[kRtL], sll[kRtL], srr[kRtL], slr[kRtL];
+      int sn[kRtL];
+      for (int l = 0; l < kRtL; ++l) {
+        sw[l] = sl[l] = sr[l] = sll[l] = srr[l] = slr[l] = 0.f;
+        sn[l] = 0;
+      }
+      for (int s = 0; s < S; ++s) {
+        const int ly = y + s - rad;
+        const bool row_in = ly >= 0 && ly < H;
+        for (int t = 0; t < S; ++t) {
+          const int lx = x + t - rad;
+          const bool in = row_in && lx >= 0 && lx < W;
+          const size_t q = in ? (size_t)ly * W + lx : 0;
+          const float wk = weights[(size_t)(s * S + t) * HWp + p];
+          const bool on = in && left_valid[q] && wk > kWeps;
+          const float g = in ? gray_ref[q] : 0.f;
+#pragma unroll
+          for (int l = 0; l < kRtL; ++l) {
+            const int d = c0 + l;
+            const bool smp = in && d < D;
+            // the warp sample (0 outside the image and past D, as the
+            // templates' zero-filled halo)
+            const float r = smp ? warped[d * HWp + q] : 0.f;
+            const bool b = on && smp && wvalid[d * HWp + q];
+            const float wj = b ? wk : 0.f;
+            const float wl = wj * g;
+            const float wr = wj * r;
+            sw[l] = sw[l] + wj;
+            sl[l] = sl[l] + wl;
+            sr[l] = sr[l] + wr;
+            sll[l] = sll[l] + wl * wl;
+            srr[l] = srr[l] + wr * wr;
+            slr[l] = slr[l] + wl * wr;
+            sn[l] += b;
+          }
+        }
+      }
+      for (int l = 0; l < kRtL; ++l)
+        if ((centre >> l) & 1u)
+          cost[l] = ncc_cost(sw[l], sl[l], sr[l], sll[l], srr[l], slr[l],
+                             (float)sn[l], max_color_diff, bad_ret);
+    }
+    for (int l = 0; l < kRtL; ++l) {
+      const int d = c0 + l;
+      if (d >= D) break;
+      if (kVolume) {
+        min_out[d * HWp + p] = cost[l];
+      } else if (cost[l] + (float)1e-10 < min_c) {
+        second = min_c;
+        min_c = cost[l];
+        best = depths[d];
+      }
+    }
+  }
+  if (!kVolume) {
+    min_out[p] = min_c;
+    second_out[p] = second;
+    best_out[p] = best;
+  }
+}
+
+template <bool kVolume>
+int launch_rt(const float* depths, const float* warped,
+              const uint8_t* wvalid, const float* gray_ref,
+              const uint8_t* left_valid, const float* weights,
+              float* min_out, float* second_out, float* best_out, int H,
+              int W, int D, int radius, float max_color_diff, float bad_ret,
+              cudaStream_t stream) {
+  const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH);
+  cost_wta_rt_kernel<kVolume><<<grid, kThreads, 0, stream>>>(
+      depths, warped, wvalid, gray_ref, left_valid, weights, min_out,
+      second_out, best_out, H, W, D, radius, max_color_diff, bad_ret);
+  return (int)cudaGetLastError();
+}
+
+template <bool kVolume>
+int rt_blocks_per_sm() {
+  int n = 0;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &n, cost_wta_rt_kernel<kVolume>, kThreads, 0) == cudaSuccess
+             ? n
+             : 0;
+}
+
 }  // namespace
 
-// The radii the library is built for: 1 .. 7 (TwoViewConfig.window_radius
-// is 5).
+// The radii of the compile-time instances: 1 .. 7
+// (TwoViewConfig.window_radius is 5).  Which instance a call takes is the
+// caller's choice (ops/cuda_cost_wta.py runtime_instance): rt = 1 takes the
+// run-time instance, rt = 0 the radius's compile-time one, which these
+// entry points refuse where the library does not have it.
 #define COST_RADII(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7)
 
 // depths [D] f32; warped [D, H, W] f32; wvalid [D, H, W] bool; gray_ref
 // [H, W] f32; left_valid [H, W] bool (mask & sample() validity of the
 // reference); weights [S*S, H, W] f32 -> min_cost, second, best [H, W] f32
 // (inf, inf, NaN where no label won).
-// Returns the CUDA error of the launch (0 on success).
+// Returns the CUDA error of the launch (0 on success), and
+// cudaErrorInvalidValue for a radius below 1 or a compile-time instance
+// the library does not have.
 extern "C" int cost_wta_launch(const float* depths, const float* warped,
                                const uint8_t* wvalid, const float* gray_ref,
                                const uint8_t* left_valid,
@@ -531,7 +669,12 @@ extern "C" int cost_wta_launch(const float* depths, const float* warped,
                                float* second_out, float* best_out, int H,
                                int W, int D, int radius,
                                float max_color_diff, float bad_ret,
-                               cudaStream_t stream) {
+                               cudaStream_t stream, int rt) {
+  if (radius < 1) return (int)cudaErrorInvalidValue;
+  if (rt)
+    return launch_rt<false>(depths, warped, wvalid, gray_ref, left_valid,
+                            weights, min_out, second_out, best_out, H, W, D,
+                            radius, max_color_diff, bad_ret, stream);
   switch (radius) {
 #define COST_CASE(r)                                                        \
   case r:                                                                   \
@@ -548,14 +691,21 @@ extern "C" int cost_wta_launch(const float* depths, const float* warped,
 // warped [D, H, W] f32; wvalid [D, H, W] bool; gray_ref [H, W] f32;
 // left_valid [H, W] bool; weights [S*S, H, W] f32 -> volume [D, H, W] f32:
 // each label's cost (+inf where the pixel's own warp sample is invalid).
-// Returns the CUDA error of the launch (0 on success).
+// Returns the CUDA error of the launch (0 on success), and
+// cudaErrorInvalidValue for a radius below 1 or a compile-time instance
+// the library does not have.
 extern "C" int cost_volume_launch(const float* warped, const uint8_t* wvalid,
                                   const float* gray_ref,
                                   const uint8_t* left_valid,
                                   const float* weights, float* volume, int H,
                                   int W, int D, int radius,
                                   float max_color_diff, float bad_ret,
-                                  cudaStream_t stream) {
+                                  cudaStream_t stream, int rt) {
+  if (radius < 1) return (int)cudaErrorInvalidValue;
+  if (rt)
+    return launch_rt<true>(nullptr, warped, wvalid, gray_ref, left_valid,
+                           weights, volume, nullptr, nullptr, H, W, D, radius,
+                           max_color_diff, bad_ret, stream);
   switch (radius) {
 #define COST_CASE(r)                                                       \
   case r:                                                                  \
@@ -569,10 +719,13 @@ extern "C" int cost_volume_launch(const float* warped, const uint8_t* wvalid,
   }
 }
 
-// The blocks of the radius's kernel (volume mode or not) resident on one
-// SM, as the runtime computes them for its threads and shared memory; 0 on
-// an error or for a radius the library is not built for.
-extern "C" int cost_wta_blocks_per_sm(int volume, int radius) {
+// The blocks of the radius's compile-time instance (rt = 0) or of the
+// run-time instance (rt = 1), volume mode or not, resident on one SM, as
+// the runtime computes them for its threads and shared memory; 0 on an
+// error or for a compile-time instance the library does not have.
+extern "C" int cost_wta_blocks_per_sm(int volume, int radius, int rt) {
+  if (rt)
+    return volume ? rt_blocks_per_sm<true>() : rt_blocks_per_sm<false>();
   switch (radius) {
 #define COST_CASE(r)                                                    \
   case r:                                                               \
@@ -584,9 +737,11 @@ extern "C" int cost_wta_blocks_per_sm(int volume, int radius) {
   }
 }
 
-// The dynamic shared memory a block of the radius's kernel takes, in bytes
-// (0 for a radius the library is not built for).
-extern "C" int cost_wta_smem_bytes(int radius) {
+// The dynamic shared memory a block of the radius's compile-time instance
+// (rt = 0) or of the run-time instance (rt = 1, none) takes, in bytes; -1
+// for a compile-time instance the library does not have.
+extern "C" int cost_wta_smem_bytes(int radius, int rt) {
+  if (rt) return 0;
   switch (radius) {
 #define COST_CASE(r) \
   case r:            \
@@ -594,6 +749,6 @@ extern "C" int cost_wta_smem_bytes(int radius) {
     COST_RADII(COST_CASE)
 #undef COST_CASE
     default:
-      return 0;
+      return -1;
   }
 }

@@ -40,6 +40,11 @@
 // an invalid pixel is 8192, so no candidate or chain step can lower it, and
 // no chain passes through it.  Built with --fmad=false: every sum rounds as
 // in the plain version.
+//
+// Radii: the design above is one template on r, built for r = 1 .. 7; any
+// other radius >= 1 takes the run-time-radius instance below, whose window
+// state lives in device memory (the output tensor) instead of shared
+// memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -220,19 +225,206 @@ int launch(const float* rgb, const uint8_t* valid, float* out, int H, int W,
   return (int)cudaGetLastError();
 }
 
+template <int R>
+int blocks_per_sm() {
+  using T = Tile<R>;
+  int n = 0;
+  if (cudaFuncSetAttribute(geodesic_weights_kernel<R>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)T::kSmemBytes) != cudaSuccess)
+    return 0;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &n, geodesic_weights_kernel<R>, T::NT, T::kSmemBytes) ==
+                 cudaSuccess
+             ? n
+             : 0;
+}
+
+// ---------------------------------------------------------------------------
+// The run-time-radius instance (r >= 8, any radius).  At r = 8 the
+// templates' window state would take 289 x 128 x 4 B = 148 KB of shared
+// memory a block, and from r = 10 no longer fits at all, so this instance
+// keeps no window in shared memory:
+// - a first kernel writes the four edge planes (right, down, down-left,
+//   down-right) of every pixel of the image padded by r on each side to a
+//   scratch buffer [4, H + 2r, W + 2r] in device memory, which the caller
+//   allocates (the wrapper, from PyTorch's allocator): 8192
+//   where either end is off the image or invalid, else the colour
+//   distance edge() computes in the templates, so each edge is the same
+//   float;
+// - the sweep keeps each thread's window state in the output tensor
+//   itself, cell k of pixel p at out[k * H * W + p] ([cell][pixel]: a
+//   warp's 32 pixels of one row read and write a cell coalesced), and
+//   sweeps it in place, then turns it into weights.  A cell update reads
+//   its state, the previous window row's value (written earlier in the
+//   same sweep by the same thread) and four edges (L1/L2), and writes the
+//   state back: 1 + 1 + 4 loads and a store a cell, 6 sweeps.  Nothing
+//   bounds the radius but the output's size.
+// The row update is the templates' (candidates from the previous row for
+// dx in (-1, 0, 1), then the within-row chain), streamed along the row:
+// the candidates of cell t read only the previous row, and its chain step
+// only cell t-1's final value, so one pass computes both in that order.
+// ---------------------------------------------------------------------------
+
+constexpr int kRtBX = 32;                 // a warp: one pixel row
+constexpr int kRtBY = 4;
+
+// edges [4][PH][PW] of the image padded by R (PH = H + 2R, PW = W + 2R):
+// for padded pixel (py, px), the edge to its right, down, down-left and
+// down-right neighbour.
+__global__ void __launch_bounds__(kRtBX * kRtBY)
+geodesic_edges_kernel(const float* __restrict__ rgb,
+                      const uint8_t* __restrict__ valid,
+                      float* __restrict__ edges, int H, int W, int R) {
+  const int PW = W + 2 * R, PH = H + 2 * R;
+  const int px = blockIdx.x * kRtBX + threadIdx.x;
+  const int py = blockIdx.y * kRtBY + threadIdx.y;
+  if (px >= PW || py >= PH) return;
+  const int gx = px - R, gy = py - R;
+  auto pixel = [&](int yy, int xx) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
+      const size_t q = (size_t)yy * W + xx;
+      v = make_float4(rgb[3 * q], rgb[3 * q + 1], rgb[3 * q + 2],
+                      (valid == nullptr || valid[q]) ? 1.f : 0.f);
+    }
+    return v;
+  };
+  const float4 a = pixel(gy, gx);
+  const size_t plane = (size_t)PH * PW;
+  const size_t i = (size_t)py * PW + px;
+  edges[i] = edge(a, pixel(gy, gx + 1));
+  edges[plane + i] = edge(a, pixel(gy + 1, gx));
+  edges[2 * plane + i] = edge(a, pixel(gy + 1, gx - 1));
+  edges[3 * plane + i] = edge(a, pixel(gy + 1, gx + 1));
+}
+
+// One min-plus sweep of a window of run-time size S over its state in
+// device memory.  DY = -1 forward, +1 backward, as sweep<R, DY>.  st: cell
+// 0 of this thread's pixel, cells `plane` apart; er .. edr: the padded edge
+// planes, e0 the padded index of window pixel (0, 0), PW their row length.
+template <int DY>
+__device__ void sweep_rt(float* st, size_t plane, int S,
+                         const float* __restrict__ er,
+                         const float* __restrict__ ed,
+                         const float* __restrict__ edl,
+                         const float* __restrict__ edr, size_t e0,
+                         int PW) {
+  for (int i = 0; i < S; ++i) {
+    const int s = DY < 0 ? i : S - 1 - i;
+    float* row = st + (size_t)s * S * plane;
+    const float* prow = i == 0 ? row : DY < 0 ? row - S * plane
+                                              : row + S * plane;
+    const size_t e = e0 + (size_t)s * PW;   // padded index of pixel (s, 0)
+    if (DY < 0) {
+      // previous row s - 1: the downward edges of its pixels
+      const size_t q = e - PW;
+      float p_lo = 0.f, p_mid = i > 0 ? prow[0] : 0.f, left = 0.f;
+      for (int t = 0; t < S; ++t) {
+        float c = row[t * plane];
+        if (i > 0) {
+          const float p_hi = t + 1 < S ? prow[(t + 1) * plane] : 0.f;
+          if (t > 0) c = fminf(c, p_lo + edr[q + t - 1]);
+          c = fminf(c, p_mid + ed[q + t]);
+          if (t < S - 1) c = fminf(c, p_hi + edl[q + t + 1]);
+          p_lo = p_mid;
+          p_mid = p_hi;
+        }
+        if (t > 0) c = fminf(c, left + er[e + t - 1]);
+        row[t * plane] = c;
+        left = c;
+      }
+    } else {
+      // previous row s + 1: this pixel's downward edges
+      float p_hi = 0.f, p_mid = i > 0 ? prow[(S - 1) * plane] : 0.f,
+            right = 0.f;
+      for (int t = S - 1; t >= 0; --t) {
+        float c = row[t * plane];
+        if (i > 0) {
+          const float p_lo = t > 0 ? prow[(t - 1) * plane] : 0.f;
+          if (t > 0) c = fminf(c, p_lo + edl[e + t]);
+          c = fminf(c, p_mid + ed[e + t]);
+          if (t < S - 1) c = fminf(c, p_hi + edr[e + t]);
+          p_hi = p_mid;
+          p_mid = p_lo;
+        }
+        if (t < S - 1) c = fminf(c, right + er[e + t]);
+        row[t * plane] = c;
+        right = c;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kRtBX * kRtBY)
+geodesic_weights_rt_kernel(const float* __restrict__ edges,
+                           float* __restrict__ out, int H, int W, int R,
+                           int iters, float sigma) {
+  const int x = blockIdx.x * kRtBX + threadIdx.x;
+  const int y = blockIdx.y * kRtBY + threadIdx.y;
+  if (x >= W || y >= H) return;
+  const int S = 2 * R + 1;
+  const int PW = W + 2 * R;
+  const size_t eplane = (size_t)(H + 2 * R) * PW;
+  const float* er = edges;
+  const float* ed = er + eplane;
+  const float* edl = ed + eplane;
+  const float* edr = edl + eplane;
+
+  const size_t plane = (size_t)H * W;
+  float* st = out + (size_t)y * W + x;
+  for (int k = 0; k < S * S; ++k) st[k * plane] = kClamp;
+  st[(size_t)(R * S + R) * plane] = 0.f;
+  // window pixel (0, 0) is image pixel (y - R, x - R): padded (y, x)
+  const size_t e0 = (size_t)y * PW + x;
+  for (int it = 0; it < iters; ++it) {
+    sweep_rt<-1>(st, plane, S, er, ed, edl, edr, e0, PW);
+    sweep_rt<1>(st, plane, S, er, ed, edl, edr, e0, PW);
+  }
+  for (int k = 0; k < S * S; ++k)
+    st[k * plane] = expf(-st[k * plane] / sigma);
+}
+
+int launch_rt(const float* rgb, const uint8_t* valid, float* out,
+              float* edges, int H, int W, int radius, int iters, float sigma,
+              cudaStream_t stream) {
+  const int PW = W + 2 * radius, PH = H + 2 * radius;
+  const dim3 block(kRtBX, kRtBY);
+  geodesic_edges_kernel<<<dim3((PW + kRtBX - 1) / kRtBX,
+                               (PH + kRtBY - 1) / kRtBY),
+                          block, 0, stream>>>(rgb, valid, edges, H, W,
+                                              radius);
+  geodesic_weights_rt_kernel<<<dim3((W + kRtBX - 1) / kRtBX,
+                                    (H + kRtBY - 1) / kRtBY),
+                               block, 0, stream>>>(edges, out, H, W, radius,
+                                                   iters, sigma);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// The radii the library is built for: 1 .. 7 (the window state takes
+// The radii of the compile-time instances: 1 .. 7 (the window state takes
 // (2r+1)^2 x 32 x BY x 4 B of dynamic shared memory: 71 KB a block at
-// r = 5, 128 KB at r = 7).
+// r = 5, 128 KB at r = 7).  Which instance a call takes is the caller's
+// choice (ops/cuda_weights.py runtime_instance): these entry points launch
+// or describe the instance they are told to, and refuse a compile-time
+// instance the library does not have.
 #define WEIGHTS_RADII(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7)
 
 // rgb [H, W, 3] f32, valid [H, W] bool or null -> out [S*S, H, W] f32.
-// Returns cudaGetLastError() after the launch (0 on success).
+// edges null: the radius's compile-time instance; else the run-time
+// instance, edges its scratch [4, H + 2r, W + 2r] f32.
+// Returns cudaGetLastError() after the launch (0 on success), and
+// cudaErrorInvalidValue for a radius below 1 or a compile-time instance
+// the library does not have.
 extern "C" int geodesic_weights_launch(const float* rgb, const uint8_t* valid,
                                        float* out, int H, int W, int radius,
                                        int iters, float sigma,
-                                       cudaStream_t stream) {
+                                       cudaStream_t stream, float* edges) {
+  if (radius < 1) return (int)cudaErrorInvalidValue;
+  if (edges)
+    return launch_rt(rgb, valid, out, edges, H, W, radius, iters, sigma,
+                     stream);
   switch (radius) {
 #define WEIGHTS_CASE(r) \
   case r:               \
@@ -244,13 +436,39 @@ extern "C" int geodesic_weights_launch(const float* rgb, const uint8_t* valid,
   }
 }
 
-// The dynamic shared memory a block of the radius's kernel takes, in bytes
-// (0 for a radius the library is not built for).
-extern "C" int geodesic_weights_smem_bytes(int radius) {
+// The dynamic shared memory a block of the radius's compile-time instance
+// (rt = 0) or of the run-time instance (rt = 1, none) takes, in bytes; -1
+// for a compile-time instance the library does not have.
+extern "C" int geodesic_weights_smem_bytes(int radius, int rt) {
+  if (rt) return 0;
   switch (radius) {
 #define WEIGHTS_CASE(r) \
   case r:               \
     return (int)Tile<r>::kSmemBytes;
+    WEIGHTS_RADII(WEIGHTS_CASE)
+#undef WEIGHTS_CASE
+    default:
+      return -1;
+  }
+}
+
+// The blocks of the sweep kernel of the radius's compile-time instance (rt
+// = 0) or of the run-time instance (rt = 1) resident on one SM, as the
+// runtime computes them for its threads and shared memory; 0 on an error
+// or for a compile-time instance the library does not have.
+extern "C" int geodesic_weights_blocks_per_sm(int radius, int rt) {
+  if (rt) {
+    int n = 0;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &n, geodesic_weights_rt_kernel, kRtBX * kRtBY, 0) ==
+                   cudaSuccess
+               ? n
+               : 0;
+  }
+  switch (radius) {
+#define WEIGHTS_CASE(r) \
+  case r:               \
+    return blocks_per_sm<r>();
     WEIGHTS_RADII(WEIGHTS_CASE)
 #undef WEIGHTS_CASE
     default:

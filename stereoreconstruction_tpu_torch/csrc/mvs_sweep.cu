@@ -75,7 +75,9 @@
 // the weights in registers; from r = 3 (49 .. 225 taps) the mask takes
 // several words and the weight arrays live in local memory (cached in L1),
 // the loops unrolled a row at a time.  The arithmetic and its order are
-// the same at every radius.
+// the same at every radius.  Any other radius >= 1, a list longer than 16
+// or more than 32 neighbours takes the run-time instance at the end of
+// this file, which computes the same values tap by tap.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -442,19 +444,26 @@ void launch(const float* depths, const float* coords, const float* gray_nbr,
 // which the main path runs: there the run-time list takes 1.20-1.25 ms a
 // view against 0.96-0.97 ms (NVIDIA H100 80GB HBM3, 700 W;
 // kernel_variants.py).
+// list_k, the caller's choice: 1 the WTA carry (n_topk 1), 9 the compiled
+// list of 9 (r = 2 only), 0 a list of n_topk (1 .. kMaxK) read at run
+// time; false for any other.
 template <int R>
-bool dispatch(int wta, int n_topk, const float* depths, const float* coords,
-              const float* gray_nbr, const float* gl, const uint8_t* lv,
-              const float* weights, const uint8_t* nbr_valid,
-              const uint8_t* center_valid, float* ncc_out, float* depth_out,
-              int H, int W, int N, int hs, int ws, int label0, int n_labels,
-              float thr, cudaStream_t stream) {
-  if (wta ? n_topk != 1 : (n_topk < 1 || n_topk > kMaxK)) return false;
-  if (wta)
+bool dispatch(int list_k, int n_topk, const float* depths,
+              const float* coords, const float* gray_nbr, const float* gl,
+              const uint8_t* lv, const float* weights,
+              const uint8_t* nbr_valid, const uint8_t* center_valid,
+              float* ncc_out, float* depth_out, int H, int W, int N, int hs,
+              int ws, int label0, int n_labels, float thr,
+              cudaStream_t stream) {
+  if (list_k == 1 ? n_topk != 1
+      : list_k == 9 ? (R != 2 || n_topk != 9)
+                    : (list_k != 0 || n_topk < 1 || n_topk > kMaxK))
+    return false;
+  if (list_k == 1)
     launch<R, 1>(depths, coords, gray_nbr, gl, lv, weights, nbr_valid,
                  center_valid, ncc_out, depth_out, H, W, N, hs, ws, label0,
                  n_labels, thr, 1, stream);
-  else if (R == 2 && n_topk == 9)
+  else if (R == 2 && list_k == 9)
     launch<2, 9>(depths, coords, gray_nbr, gl, lv, weights, nbr_valid,
                  center_valid, ncc_out, depth_out, H, W, N, hs, ws, label0,
                  n_labels, thr, 9, stream);
@@ -465,20 +474,224 @@ bool dispatch(int wta, int n_topk, const float* depths, const float* coords,
   return true;
 }
 
+// ---------------------------------------------------------------------------
+// The run-time instance: any radius, any list length, any neighbour count.
+// It runs where no compile-time instance does: a radius above 7 (the
+// templates' per-thread arrays and one-word row and column masks stop
+// there), a list longer than 16, or more than 32 neighbours (the
+// templates' neighbour mask is one word).  The radius is a kernel argument
+// and the tap loops run at run time.  A thread keeps nothing of its window
+// in registers: each tap's weight, left value and left validity are read
+// from their [S*S, H, W] planes (coalesced across a warp, cached), a left
+// value x weight recomputed as the templates compute it, and a padded
+// neighbour is skipped by reading nbr_valid.  The list of a top-K sweep
+// lives in the output planes [K, H, W] themselves, inserted into by a
+// run-time loop with the unrolled insertion's comparisons.  Its paths and
+// their arithmetic are the templates' (interior, wholly outside, border;
+// the label-independent sums hoisted once a pixel), tap by tap in the same
+// order, so its NCC values and picks are the plain version's bit for bit.
+// ---------------------------------------------------------------------------
+
+template <bool WTA>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+mvs_sweep_rt_kernel(const float* __restrict__ depths,
+                    const float* __restrict__ coords,
+                    const float* __restrict__ gray_nbr,
+                    const float* __restrict__ gl,
+                    const uint8_t* __restrict__ lv,
+                    const float* __restrict__ wts,
+                    const uint8_t* __restrict__ nbr_valid,
+                    const uint8_t* __restrict__ center_valid,
+                    float* __restrict__ ncc_out, float* __restrict__ depth_out,
+                    int H, int W, int N, int hs, int ws, int label0,
+                    int n_labels, float thr, int rad, int n_list) {
+  const int x = blockIdx.x * kBlockX + threadIdx.x;
+  const int y = blockIdx.y * kBlockY + threadIdx.y;
+  if (x >= W || y >= H) return;
+  const size_t HW = (size_t)H * W;
+  const size_t p = (size_t)y * W + x;
+  if (WTA && center_valid != nullptr && !center_valid[p]) {
+    ncc_out[p] = -INFINITY;
+    depth_out[p] = -1.f;
+    return;
+  }
+  const int S = 2 * rad + 1;
+  const int T = S * S;
+  const float frad = (float)rad;
+  // tap k of this pixel: its weight, left value x weight and mask bit
+  const float* wk_p = wts + p;
+  const float* gl_p = gl + p;
+  const uint8_t* lv_p = lv + p;
+  auto tap_on = [&](int k, float wgt) {
+    return lv_p[k * HW] && wgt > kWeps;
+  };
+
+  // the label-independent sums of an interior window, row-major
+  float h_w = 0.f, h_l = 0.f, h_ll = 0.f, h_cnt = 0.f;
+  int n_on = 0;
+  for (int k = 0; k < T; ++k) {
+    const float wgt = wk_p[k * HW];
+    if (tap_on(k, wgt)) {
+      const float wlk = wgt * gl_p[k * HW];
+      h_w = h_w + wgt;
+      h_l = h_l + wlk;
+      h_ll = h_ll + wlk * wlk;
+      h_cnt = h_cnt + 1.f;
+      ++n_on;
+    }
+  }
+  const LeftTerms inner = left_terms(h_w, h_l, h_ll, h_cnt);
+  const bool all_on = n_on == T;
+
+  const float fws = (float)ws, fhs = (float)hs;
+  // WTA: the carry (lo, lo_d) in registers.  Lists: entry j of this pixel
+  // at ncc_out / depth_out[j * HW + p], ascending, lo its smallest ncc.
+  float lo = -INFINITY, lo_d = -1.f;
+  if (!WTA) {
+    for (int j = 0; j < n_list; ++j) {
+      ncc_out[j * HW + p] = -INFINITY;
+      depth_out[j * HW + p] = -1.f;
+    }
+  }
+  const float* cxy = coords + p;
+  float x2_ahead = cxy[0], y2_ahead = cxy[HW];
+  for (int i = 0; i < n_labels; ++i) {
+    float m = -INFINITY;
+    for (int n = 0; n < N; ++n) {
+      const float x2 = x2_ahead, y2 = y2_ahead;
+      if (i + 1 < n_labels || n + 1 < N) {
+        cxy += 2 * HW;
+        x2_ahead = cxy[0];
+        y2_ahead = cxy[HW];
+      }
+      if (!nbr_valid[n] || !(x2 > -1e6f)) continue;
+      if (!(x2 + frad > -1.f) || !(x2 - frad < fws) || !(y2 + frad > -1.f)
+          || !(y2 - frad < fhs)) {
+        m = fmaxf(m, (0.f > thr) ? 0.f : -INFINITY);
+        continue;
+      }
+      const float ixf = floorf(fminf(fmaxf(x2, -1e6f), 1e6f));
+      const float iyf = floorf(fminf(fmaxf(y2, -1e6f), 1e6f));
+      const float* img = gray_nbr + (size_t)n * hs * ws;
+      float q;
+      if (ixf - frad >= 0.f && ixf + frad <= fws - 1.f && x2 - frad > -1.f
+          && x2 + frad < fws && iyf - frad >= 0.f
+          && iyf + frad <= fhs - 1.f && y2 - frad > -1.f
+          && y2 + frad < fhs) {
+        // interior: every tap in range, valid iff its mask bit is set
+        const float* top = img + ((int)iyf - rad) * ws + ((int)ixf - rad);
+        float s_r = 0.f, s_rr = 0.f, s_lr = 0.f;
+        for (int r = 0; r < S; ++r) {
+          for (int c = 0; c < S; ++c) {
+            const int k = r * S + c;
+            const float wgt = wk_p[k * HW];
+            if (all_on || tap_on(k, wgt)) {
+              const float wr = wgt * __ldg(top + r * ws + c);
+              s_r = s_r + wr;
+              s_rr = s_rr + wr * wr;
+              s_lr = s_lr + (wgt * gl_p[k * HW]) * wr;
+            }
+          }
+        }
+        q = ncc_from_sums(inner, s_r, s_rr, s_lr);
+      } else {
+        // border: per-tap range tests and clamped reads, sums predicated
+        float s_w = 0.f, s_l = 0.f, s_r = 0.f, s_ll = 0.f, s_rr = 0.f,
+              s_lr = 0.f, cnt = 0.f;
+        for (int r = 0; r < S; ++r) {
+          const float yr = y2 + (float)(r - rad);
+          const bool row_ok = yr > -1.f && yr < fhs;
+          const int jy =
+              (int)fminf(fmaxf(iyf + (float)(r - rad), 0.f), fhs - 1.f) * ws;
+          for (int c = 0; c < S; ++c) {
+            const int k = r * S + c;
+            const float xc = x2 + (float)(c - rad);
+            const int jx =
+                (int)fminf(fmaxf(ixf + (float)(c - rad), 0.f), fws - 1.f);
+            const float wgt = wk_p[k * HW];
+            const float wlk = wgt * gl_p[k * HW];
+            const float wr = wgt * __ldg(img + jy + jx);
+            if (row_ok && xc > -1.f && xc < fws && tap_on(k, wgt)) {
+              s_w = s_w + wgt;
+              s_l = s_l + wlk;
+              s_r = s_r + wr;
+              s_ll = s_ll + wlk * wlk;
+              s_rr = s_rr + wr * wr;
+              s_lr = s_lr + wlk * wr;
+              cnt = cnt + 1.f;
+            }
+          }
+        }
+        q = ncc_from_sums(left_terms(s_w, s_l, s_ll, cnt), s_r, s_rr, s_lr);
+      }
+      m = fmaxf(m, (q > thr) ? q : -INFINITY);
+    }
+    // the insertion of mvs_sweep_kernel, entry by entry: entry j takes
+    // t[j+1] if t[j+1] <= m, else m if t[j] <= m, else t[j] (t[K] = +inf),
+    // reading entry j + 1 before entry j is written
+    const float depth = depths[label0 + i];
+    if (WTA) {
+      if (lo <= m) {
+        lo = m;
+        lo_d = depth;
+      }
+    } else if (m > -INFINITY && lo <= m) {
+      float t_n = ncc_out[p], t_d = depth_out[p];
+      for (int j = 0; j < n_list; ++j) {
+        const bool last = j + 1 == n_list;
+        const float u_n = last ? INFINITY : ncc_out[(j + 1) * HW + p];
+        const float u_d = last ? -1.f : depth_out[(j + 1) * HW + p];
+        const bool next = !last && u_n <= m;
+        const bool here = t_n <= m;
+        ncc_out[j * HW + p] = next ? u_n : here ? m : t_n;
+        depth_out[j * HW + p] = next ? u_d : here ? depth : t_d;
+        t_n = u_n;
+        t_d = u_d;
+      }
+      lo = ncc_out[p];
+    }
+  }
+  if (WTA) {
+    ncc_out[p] = lo;
+    depth_out[p] = lo_d;
+  }
+}
+
+template <bool WTA>
+void launch_rt(const float* depths, const float* coords,
+               const float* gray_nbr, const float* gl, const uint8_t* lv,
+               const float* weights, const uint8_t* nbr_valid,
+               const uint8_t* center_valid, float* ncc_out, float* depth_out,
+               int H, int W, int N, int hs, int ws, int label0, int n_labels,
+               float thr, int radius, int n_list, cudaStream_t stream) {
+  const dim3 block(kBlockX, kBlockY);
+  const dim3 grid((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY);
+  mvs_sweep_rt_kernel<WTA><<<grid, block, 0, stream>>>(
+      depths, coords, gray_nbr, gl, lv, weights, nbr_valid, center_valid,
+      ncc_out, depth_out, H, W, N, hs, ws, label0, n_labels, thr, radius,
+      n_list);
+}
+
 }  // namespace
 
-// The radii the library is built for.
+// The radii of the compile-time instances.  Which instance a call takes is
+// the caller's choice (ops/cuda_mvs.py list_instance): this entry point
+// launches the instance it is told to, and refuses one the library does
+// not have.
 #define SWEEP_RADII(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7)
 
 // depths [D] f32; coords [n_labels, N, 2, H, W] f32 for labels
 // [label0, label0 + n_labels); gray_nbr [N, hs, ws] f32; gl/weights
-// [S*S, H, W] f32; lv [S*S, H, W] bool; nbr_valid [N] bool (N <= 32);
+// [S*S, H, W] f32; lv [S*S, H, W] bool; nbr_valid [N] bool;
 // center_valid [H, W] bool or null (all valid; read only when wta)
 // -> ncc_out, depth_out [n_topk, H, W] f32, ascending.  wta = 1: the WTA
-// carry (n_topk = 1); wta = 0: the top-K lists, n_topk 1 .. 16.  Built for
-// radius 1 .. 7.
+// carry (n_topk = 1); wta = 0: the top-K lists, n_topk >= 1.  list_k < 0
+// takes the run-time instance (any radius, list length and N); list_k >= 0
+// the radius's compile-time instance (N <= 32) with that compiled list
+// (dispatch).
 // Returns cudaGetLastError() after the launch (0 on success), and
-// cudaErrorInvalidValue for a radius, top-K or N the library does not take.
+// cudaErrorInvalidValue for a radius or top-K below 1 or a compile-time
+// instance the library does not have.
 extern "C" int mvs_sweep_launch(const float* depths, const float* coords,
                                 const float* gray_nbr, const float* gl,
                                 const uint8_t* lv, const float* weights,
@@ -487,15 +700,30 @@ extern "C" int mvs_sweep_launch(const float* depths, const float* coords,
                                 float* depth_out, int H, int W, int N, int hs,
                                 int ws, int label0, int n_labels, int radius,
                                 int wta, int n_topk, float thr,
-                                cudaStream_t stream) {
-  if (N > 32) return (int)cudaErrorInvalidValue;
+                                cudaStream_t stream, int list_k) {
+  if (radius < 1 || (wta ? n_topk != 1 : n_topk < 1))
+    return (int)cudaErrorInvalidValue;
+  if (list_k < 0) {
+    if (wta)
+      launch_rt<true>(depths, coords, gray_nbr, gl, lv, weights, nbr_valid,
+                      center_valid, ncc_out, depth_out, H, W, N, hs, ws,
+                      label0, n_labels, thr, radius, 1, stream);
+    else
+      launch_rt<false>(depths, coords, gray_nbr, gl, lv, weights, nbr_valid,
+                       center_valid, ncc_out, depth_out, H, W, N, hs, ws,
+                       label0, n_labels, thr, radius, n_topk, stream);
+    return (int)cudaGetLastError();
+  }
+  // the templates' neighbour mask is one 32-bit word
+  if (N > 32 || (list_k == 1) != (wta != 0))
+    return (int)cudaErrorInvalidValue;
   bool ok = false;
   switch (radius) {
-#define SWEEP_CASE(r)                                                        \
-  case r:                                                                    \
-    ok = dispatch<r>(wta, n_topk, depths, coords, gray_nbr, gl, lv, weights, \
-                     nbr_valid, center_valid, ncc_out, depth_out, H, W, N,   \
-                     hs, ws, label0, n_labels, thr, stream);                 \
+#define SWEEP_CASE(r)                                                      \
+  case r:                                                                  \
+    ok = dispatch<r>(list_k, n_topk, depths, coords, gray_nbr, gl, lv,     \
+                     weights, nbr_valid, center_valid, ncc_out, depth_out, \
+                     H, W, N, hs, ws, label0, n_labels, thr, stream);      \
     break;
     SWEEP_RADII(SWEEP_CASE)
 #undef SWEEP_CASE
@@ -504,4 +732,16 @@ extern "C" int mvs_sweep_launch(const float* depths, const float* coords,
   }
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// The blocks of the run-time instance (WTA or lists) resident on one SM,
+// as the runtime computes them for its threads; 0 on an error.
+extern "C" int mvs_sweep_rt_blocks_per_sm(int wta) {
+  int n = 0;
+  const cudaError_t err =
+      wta ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &n, mvs_sweep_rt_kernel<true>, kBlockX * kBlockY, 0)
+          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &n, mvs_sweep_rt_kernel<false>, kBlockX * kBlockY, 0);
+  return err == cudaSuccess ? n : 0;
 }

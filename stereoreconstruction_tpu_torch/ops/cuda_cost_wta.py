@@ -19,8 +19,28 @@ import torch
 from . import cuda_build
 from .ncc_fast import fast_cost_plane, make_ref_view
 
-# The window radii the kernel is built for; another raises on the card.
-KERNEL_RADII = tuple(range(1, 8))
+# The window radii of the kernel's compile-time instances; every other
+# radius >= 1 takes its run-time-radius instance.  The C entry points launch
+# the instance the wrapper names (runtime_instance is the one rule).
+TEMPLATE_RADII = tuple(range(1, 8))
+
+
+def runtime_instance(radius: int) -> bool:
+    """Whether a CUDA call at ``radius`` takes the run-time instance (in
+    either mode).  Raises ValueError for a radius below 1."""
+    if radius < 1:
+        raise ValueError(f"window radius must be >= 1, got {radius}")
+    return radius not in TEMPLATE_RADII
+
+
+def instance_for(radius: int, volume: bool = False) -> str:
+    """The kernel instance a CUDA call at ``radius`` launches (the volume
+    mode's with ``volume``), as the profiler names it.  Raises ValueError
+    for a radius below 1."""
+    mode = "true" if volume else "false"
+    if runtime_instance(radius):
+        return f"cost_wta_rt_kernel<{mode}>"
+    return f"cost_wta_kernel<{radius}, {mode}>"
 
 
 def wta_scan(cost_fn, depths, shape, dtype):
@@ -78,9 +98,7 @@ def _check_inputs(warped, wvalid, gray_ref, left_valid, weights, radius,
     dev = warped.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if radius not in KERNEL_RADII:
-        raise ValueError(f"kernel built for radius {KERNEL_RADII[0]}.."
-                         f"{KERNEL_RADII[-1]}, got {radius}")
+    runtime_instance(radius)
     size = 2 * radius + 1
     n_depths = warped.shape[0] if warped.dim() == 3 else -1
     h, w = gray_ref.shape
@@ -127,14 +145,15 @@ def cuda_cost_wta(depths, warped, wvalid, gray_ref, left_valid, weights, *,
     out = torch.empty((3, h, w), dtype=torch.float32, device=dev)
     fn = cuda_build.library("cost_wta").cost_wta_launch
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p, ctypes.c_int])
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         rc = fn(depths.data_ptr(), warped.data_ptr(), wvalid.data_ptr(),
                 gray_ref.data_ptr(), left_valid.data_ptr(), weights.data_ptr(),
                 out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
                 h, w, n_depths, radius, max_color_diff, bad_ret,
-                torch.cuda.current_stream().cuda_stream)
+                torch.cuda.current_stream().cuda_stream,
+                int(runtime_instance(radius)))
     if rc != 0:
         raise RuntimeError(f"cost_wta kernel launch failed: CUDA error {rc}")
     cuda_cost_wta.launches += 1
@@ -161,13 +180,14 @@ def cuda_cost_volume(warped, wvalid, gray_ref, left_valid, weights, *,
                          device=warped.device)
     fn = cuda_build.library("cost_wta").cost_volume_launch
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p, ctypes.c_int])
     fn.restype = ctypes.c_int
     with torch.cuda.device(warped.device):
         rc = fn(warped.data_ptr(), wvalid.data_ptr(), gray_ref.data_ptr(),
                 left_valid.data_ptr(), weights.data_ptr(), volume.data_ptr(),
                 h, w, n_depths, radius, max_color_diff, bad_ret,
-                torch.cuda.current_stream().cuda_stream)
+                torch.cuda.current_stream().cuda_stream,
+                int(runtime_instance(radius)))
     if rc != 0:
         raise RuntimeError(f"cost_wta kernel launch (volume mode) failed: "
                            f"CUDA error {rc}")

@@ -23,10 +23,46 @@ import torch
 from . import cuda_build
 from .ncc import ncc_accumulate
 
-# The window radii and top-K list lengths the kernel is built for; another
-# value raises on the card (the plain versions on the CPU take any).
-KERNEL_RADII = tuple(range(1, 8))
-KERNEL_TOPK = tuple(range(1, 17))
+# The compile-time instances: window radii 1-7, lists of up to 16 entries,
+# up to 32 neighbours, and beside each radius's run-time list the compiled
+# list of 9 at r = 2 (MultiViewConfig's defaults).  Any other radius >= 1,
+# list length >= 1 or neighbour count takes the kernel's run-time instance.
+# The C entry point launches the instance the wrapper names (list_instance
+# is the one rule).
+TEMPLATE_RADII = tuple(range(1, 8))
+TEMPLATE_MAX_TOPK = 16
+TEMPLATE_MAX_NBR = 32
+COMPILED_LISTS = ((2, 9),)
+
+
+def list_instance(radius: int, top_k: int = 1, *, wta: bool = True,
+                  n_nbr: int = 1) -> int:
+    """The instance a CUDA call takes, as the C entry point's ``list_k``:
+    -1 the run-time instance; else the radius's compile-time instance with
+    1 the WTA carry (``wta``, top_k 1), 9 the compiled list of 9, 0 a list
+    of ``top_k`` read at run time.  Raises ValueError for a radius or top_k
+    below 1 (or a WTA call with top_k other than 1)."""
+    if radius < 1:
+        raise ValueError(f"window radius must be >= 1, got {radius}")
+    if top_k < 1 or (wta and top_k != 1):
+        raise ValueError(f"top_k must be >= 1 (1 for the WTA), got {top_k}")
+    if (radius not in TEMPLATE_RADII or n_nbr > TEMPLATE_MAX_NBR
+            or top_k > TEMPLATE_MAX_TOPK):
+        return -1
+    if wta:
+        return 1
+    return top_k if (radius, top_k) in COMPILED_LISTS else 0
+
+
+def instance_for(radius: int, top_k: int = 1, *, wta: bool = True,
+                 n_nbr: int = 1) -> str:
+    """The kernel instance a CUDA call launches, as the profiler names it:
+    the WTA carry (``wta``, top_k 1) or lists of ``top_k``, at ``radius``
+    over ``n_nbr`` neighbours.  Raises as ``list_instance``."""
+    k = list_instance(radius, top_k, wta=wta, n_nbr=n_nbr)
+    if k < 0:
+        return f"mvs_sweep_rt_kernel<{'true' if wta else 'false'}>"
+    return f"mvs_sweep_kernel<{radius}, {k}>"
 
 
 def mvs_wta_slab(plane_cost, depths, thr: float, shape, *, label0=0,
@@ -155,20 +191,14 @@ def mvs_topk_plain(depths, coords, gray_nbr, gl, lv, weights, nbr_valid, *,
                          label0=label0, n_labels=coords.shape[0])
 
 
-def _launch(wta, top_k, depths, coords, gray_nbr, gl, lv, weights, nbr_valid,
-            center_valid, *, radius, thr, label0):
-    """Check the CUDA inputs, launch the kernel (the WTA carry when
-    ``wta``, else lists of ``top_k``) and return its (ncc, depth) outputs,
-    each [top_k, H, W].  center_valid None: every centre is valid."""
+def check_launch_args(wta, top_k, depths, coords, gray_nbr, gl, lv, weights,
+                      nbr_valid, center_valid, *, radius, label0):
+    """Raise ValueError unless the tensors and arguments are what the
+    kernel takes (contiguous float32 / bool on the device of ``depths``, of
+    matching shapes; a radius and top_k of at least 1); returns (h, w, hs,
+    ws).  Any neighbour count is taken."""
     dev = depths.device
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if radius not in KERNEL_RADII:
-        raise ValueError(f"kernel built for radius {KERNEL_RADII[0]}.."
-                         f"{KERNEL_RADII[-1]}, got {radius}")
-    if top_k not in KERNEL_TOPK:
-        raise ValueError(f"kernel built for top_k {KERNEL_TOPK[0]}.."
-                         f"{KERNEL_TOPK[-1]}, got {top_k}")
+    list_instance(radius, top_k, wta=wta, n_nbr=coords.shape[1])
     h, w = gl.shape[-2:]
     size = 2 * radius + 1
     n_labels, n_nbr = coords.shape[:2]
@@ -197,13 +227,27 @@ def _launch(wta, top_k, depths, coords, gray_nbr, gl, lv, weights, nbr_valid,
     if gray_nbr.dim() != 3 or gray_nbr.shape[0] != n_nbr:
         raise ValueError(f"gray_nbr must be [{n_nbr}, hs, ws], got "
                          f"{tuple(gray_nbr.shape)}")
-    hs, ws = gray_nbr.shape[1:]
+    return (h, w) + tuple(gray_nbr.shape[1:])
+
+
+def _launch(wta, top_k, depths, coords, gray_nbr, gl, lv, weights, nbr_valid,
+            center_valid, *, radius, thr, label0):
+    """Check the CUDA inputs, launch the kernel (the WTA carry when
+    ``wta``, else lists of ``top_k``) and return its (ncc, depth) outputs,
+    each [top_k, H, W].  center_valid None: every centre is valid."""
+    dev = depths.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    h, w, hs, ws = check_launch_args(
+        wta, top_k, depths, coords, gray_nbr, gl, lv, weights, nbr_valid,
+        center_valid, radius=radius, label0=label0)
+    n_labels, n_nbr = coords.shape[:2]
 
     ncc = torch.empty((top_k, h, w), dtype=torch.float32, device=dev)
     depth = torch.empty((top_k, h, w), dtype=torch.float32, device=dev)
     fn = cuda_build.library("mvs_sweep").mvs_sweep_launch
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int])
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         rc = fn(depths.data_ptr(), coords.data_ptr(), gray_nbr.data_ptr(),
@@ -212,7 +256,8 @@ def _launch(wta, top_k, depths, coords, gray_nbr, gl, lv, weights, nbr_valid,
                 None if center_valid is None else center_valid.data_ptr(),
                 ncc.data_ptr(), depth.data_ptr(), h, w, n_nbr, hs, ws,
                 label0, n_labels, radius, int(wta), top_k, thr,
-                torch.cuda.current_stream().cuda_stream)
+                torch.cuda.current_stream().cuda_stream,
+                list_instance(radius, top_k, wta=wta, n_nbr=n_nbr))
     if rc != 0:
         raise RuntimeError(f"mvs_sweep kernel launch failed: CUDA error {rc}")
     return ncc, depth
