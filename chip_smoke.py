@@ -367,15 +367,16 @@ def cuda_ms(fn, reps, device):
     return statistics.median(times)
 
 
-def kernel_ms(fn, reps, device, kernel, strict=False):
+def kernel_ms(fn, reps, device, kernel):
     """(device ms, call ms) of one call of ``fn``: the mean device time of
     the CUDA kernel whose name holds ``kernel`` over ``reps`` calls, each
     after an L2 flush, from torch.profiler (a tuple of names: the sum of
     each one's mean, for a call that launches one kernel of each); and
     ``cuda_ms``'s event time of the whole call, which also counts the host
     work of the wrapper while the card waits (tens of microseconds).  A
-    name that matches no profiled launch times the whole call, or with
-    ``strict`` fails."""
+    name that matches no profiled launch in three sessions (the profiler's
+    CUPTI tracing drops launch records, PERF.md section 7) takes the call's
+    event time, and says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -404,10 +405,9 @@ def kernel_ms(fn, reps, device, kernel, strict=False):
     for k, n in counts.items():
         if n != reps:
             print(f"  timing: profiled {n} launches of {k}, not {reps}"
-                  + ("; its time is the call's" if n == 0 else ""))
+                  + ("; its time is the call's, by CUDA events"
+                     if n == 0 else ""))
         if n == 0:
-            if strict:
-                raise AssertionError(f"no profiled launch of {k}")
             return call, call
         total += sum(e.self_device_time_total for e in rows[k]) / n / 1e3
     return total, call
@@ -447,14 +447,20 @@ def geodesic_ops(radius, iters=3):
     return iters * 2 * 2 * per_dir + 4 * 9 + 2 * s * s
 
 
-def sweep_counts(inputs, nbr_valid, radius, every_pixel=False):
+def sweep_counts(inputs, nbr_valid, radius, every_pixel=False,
+                 by_path=False):
     """The work of the sweep on these inputs, split as the kernel splits
     it: (interior taps, border taps, interior units, border units, swept
     pixels, left-mask taps).  A unit is a (pixel, label, neighbour) with a
     valid centre (any centre with ``every_pixel``, as the top-K mode
     sweeps), base sample and neighbour; it is interior when its whole window
     lies unclamped in the neighbour image.  A tap is valid under the
-    kernel's bounds and left mask."""
+    kernel's bounds and left mask.  With ``by_path``, also the units by the
+    path the kernel takes, (interior, wholly outside, border), and the warp
+    units of the run-time instance (a (label, neighbour) of a warp, 32
+    pixels of a row, with an interior unit on a lane: its slots; with a
+    border unit on a lane: its border passes), as a second tuple
+    (interior, outside, border, interior warp units, border warp units)."""
     coords, gray = inputs["coords"], inputs["gray_nbr"]
     hs, ws = gray.shape[1:]
     lmask = inputs["lv"] & (inputs["weights"] > 1e-10)
@@ -465,7 +471,13 @@ def sweep_counts(inputs, nbr_valid, radius, every_pixel=False):
     lmask5 = lmask.reshape(size, size, 1, *lmask.shape[1:])
     offs = torch.arange(-radius, radius + 1, device=coords.device,
                         dtype=coords.dtype)[:, None, None, None]
-    t_in = t_bd = u_in = u_bd = 0
+    pad = -coords.shape[-1] % 32
+
+    def warp_units(units):
+        units = torch.nn.functional.pad(units, (0, pad))
+        return int(units.reshape(*units.shape[:-1], -1, 32).any(-1).sum())
+
+    t_in = t_bd = u_in = u_bd = n_out = w_in = w_bd = 0
     for xy in coords:                                   # per label
         x2, y2 = xy[:, 0], xy[:, 1]
         base = (x2 > -1e6) & keep
@@ -482,8 +494,17 @@ def sweep_counts(inputs, nbr_valid, radius, every_pixel=False):
         t_bd += int(taps[~inner].sum())
         u_in += int((base & inner).sum())
         u_bd += int((base & ~inner).sum())
-    return (t_in, t_bd, u_in, u_bd, int(swept.sum()),
-            int((lmask & swept[None]).sum()))
+        if by_path:
+            out = ~((x2 + radius > -1) & (x2 - radius < ws)
+                    & (y2 + radius > -1) & (y2 - radius < hs))
+            n_out += int((base & out).sum())
+            w_in += warp_units(base & inner)
+            w_bd += warp_units(base & ~inner & ~out)
+    counts = (t_in, t_bd, u_in, u_bd, int(swept.sum()),
+              int((lmask & swept[None]).sum()))
+    if not by_path:
+        return counts
+    return counts, (u_in, n_out, u_bd - n_out, w_in, w_bd)
 
 
 def sweep_ops(counts, radius=2):
@@ -1154,9 +1175,11 @@ def ragged_inputs(device, radius, seed=7):
                                                  0.0, 1.0))
 
 
-def cost_stress_inputs(device, radius, seed=11, dtype=torch.float32):
+def cost_stress_inputs(device, radius, seed=11, dtype=torch.float32,
+                       n_lab=13):
     """Structured cost-kernel inputs at 61 x 83 (ragged tiles) with 13
-    labels (not a multiple of the kernel's label chunk) that reach each of
+    labels (or ``n_lab`` >= 13; not a multiple of the label chunk of either
+    instance) that reach each of
     its paths: large all-valid regions (hoisted units), scattered and block
     holes and a half-plane of invalid warp samples inside the left mask
     (full units), holes that lie only outside every left mask (inside a
@@ -1167,7 +1190,7 @@ def cost_stress_inputs(device, radius, seed=11, dtype=torch.float32):
     labels (a tie the WTA rule breaks towards the first).  Returns
     (depths, warped, wvalid, gray_ref, left_valid, weights)."""
     rng = np.random.default_rng(seed)
-    size, h, w, n = 2 * radius + 1, 61, 83, 13
+    size, h, w, n = 2 * radius + 1, 61, 83, n_lab
     gray = rng.uniform(0.0, 255.0, (h, w))
     warped = rng.uniform(0.0, 255.0, (n, h, w))
     weights = rng.uniform(0.0, 1.0, (size, size, h, w))
@@ -1269,7 +1292,7 @@ def check_cost(device, tv, warped, wvalid, cfg, reps, plain_reps):
         ("stress", cost_stress_inputs(device, cfg.window_radius))])
 
     ms, call_ms = kernel_ms(lambda: cuda_cost_wta(*args, **kw), reps,
-                            device, "cost_wta_kernel<5, false>", strict=True)
+                            device, "cost_wta_kernel<5, false>")
     plain_ms = cuda_ms(lambda: cost_wta_plain(*args, **kw), plain_reps,
                        device)
     n_bytes = (sum(t.numel() * t.element_size() for t in args)
@@ -1303,7 +1326,7 @@ def check_cost_volume(device, tv, warped, wvalid, cfg, reps, plain_reps):
             ("stress", cost_stress_inputs(device, cfg.window_radius)[1:])])
 
     ms, call_ms = kernel_ms(lambda: cuda_cost_volume(*args, **kw), reps,
-                            device, "cost_wta_kernel<5, true>", strict=True)
+                            device, "cost_wta_kernel<5, true>")
     plain_ms = cuda_ms(lambda: cost_volume_plain(*args, **kw), plain_reps,
                        device)
     n_bytes = (sum(t.numel() * t.element_size() for t in args)
@@ -1543,6 +1566,13 @@ RT_NBR = 40
 # threshold every valid NCC passes (lists of RT_FULL_LABELS hold every
 # label a pixel inserts, so they count the evictions of the shorter ones)
 RT_FULL_LABELS, RT_FULL_THR = 40, -1.0
+# labels of the stress inputs that end in a partial chunk of the
+# run-time instances: kernel 4's label chunks of 8 (two and a part),
+# kernel 2's 128 labels whose carries wait for its passes (one and a part)
+RT_COST_LABELS, RT_SWEEP_LABELS = 21, 140
+# a radius whose halo does not fit a block's shared memory (r >= 29):
+# kernel 4's run-time instance takes its unstaged path there
+RT_COST_UNSTAGED_RADIUS = 30
 RADII = TEMPLATE_RADII + RT_RADII
 SWEEP_TOPKS = TEMPLATE_TOPKS + RT_TOPKS
 
@@ -1634,8 +1664,7 @@ def check_weights_radii(device, rgb, reps):
         if not (err <= 2e-5 and s_err <= 2e-5):
             raise AssertionError(f"geodesic weights r={r} disagree")
         ms, _ = kernel_ms(lambda: cuda_geodesic_weights(rgb, r), reps,
-                          device, f"geodesic_weights_kernel<{r}>",
-                          strict=True)
+                          device, f"geodesic_weights_kernel<{r}>")
         plain_ms = cuda_ms(lambda: geodesic_weights(rgb, r, exact=False), 3,
                            device)
         size = 2 * r + 1
@@ -1719,8 +1748,9 @@ def check_sweep_radii(device, reps):
     phase 4's) bit-equal to their plain versions on the ragged stress
     input at that radius, where each is timed; the run-time instance (lists
     of RT_TOPKS at r = 1-7; WTA and every top-K at RT_RADII; WTA, K = 9 and
-    K = 32 over RT_NBR neighbours, every fifth and the last padded)
-    bit-equal on the same kind of input (timed at full width in phase 24).
+    K = 32 over RT_NBR neighbours, every fifth and the last padded; WTA,
+    K = 17 and 32 over RT_SWEEP_LABELS labels at r = 8) bit-equal on the
+    same kind of input (timed at full width in phase 24).
     Returns the compile-time instances' rows."""
     from stereoreconstruction_tpu_torch.ops.cuda_mvs import (
         cuda_mvs_topk, cuda_mvs_wta, mvs_topk_plain, mvs_wta_plain)
@@ -1759,8 +1789,7 @@ def check_sweep_radii(device, reps):
             if not (exact and float(oob) == 0.0):
                 raise AssertionError(f"sweep {inst} disagrees with its plain "
                                      "version")
-            ms, _ = kernel_ms(lambda: call()[:2], reps, device, kname,
-                              strict=True)
+            ms, _ = kernel_ms(lambda: call()[:2], reps, device, kname)
             plain = (lambda: mvs_wta_plain(**kw, **s_in)) if mode == "wta" \
                 else (lambda k=k: mvs_topk_plain(top_k=k, **kw, **no_c))
             plain_ms = cuda_ms(plain, 3, device)
@@ -1777,6 +1806,10 @@ def check_sweep_radii(device, reps):
         s_in, s_nv, s_thr = sweep_stress_inputs(device, r, n_nbr=RT_NBR)
         gate_sweep_modes(s_in, s_nv, r, s_thr, modes,
                          f"stress, {int(s_nv.sum())} of {RT_NBR} valid")
+    s_in, s_nv, s_thr = sweep_stress_inputs(device, 8,
+                                            n_lab=RT_SWEEP_LABELS)
+    gate_sweep_modes(s_in, s_nv, 8, s_thr, ("wta", 17, 32),
+                     f"stress, {RT_SWEEP_LABELS} labels")
     for r in (2, 8):
         gate_full_lists(device, r)
     return rows
@@ -1812,16 +1845,17 @@ def check_cost_radii(device, reps):
     """Kernel 4 at every compile-time radius but the two-view paths' 5,
     both modes, bit-equal to its plain versions on the structured stress
     input at that radius, where each is timed; and the run-time instance
-    at RT_RADII, both modes, bit-equal on the same input at that radius
-    (timed at full width in phase 24).
-    Returns the compile-time instances' rows."""
+    at RT_RADII and RT_COST_UNSTAGED_RADIUS (its unstaged path), both
+    modes, bit-equal on the same input at that radius, also over
+    RT_COST_LABELS labels (timed at full width in phase 24).  Returns the
+    compile-time instances' rows."""
     from stereoreconstruction_tpu_torch.config import TwoViewConfig
     from stereoreconstruction_tpu_torch.ops.cuda_cost_wta import (
         cost_volume_plain, cost_wta_plain, cuda_cost_volume, cuda_cost_wta,
         instance_for)
 
     rows = []
-    for r in RADII:
+    for r in RADII + (RT_COST_UNSTAGED_RADIUS,):
         if r == 5:
             continue
         cfg = TwoViewConfig(window_radius=r)
@@ -1829,10 +1863,14 @@ def check_cost_radii(device, reps):
         if r not in TEMPLATE_RADII:
             print(f"cost r={r}: {instance_for(r)}, "
                   f"{instance_for(r, volume=True)}")
+            # and two label chunks of the run-time instance and a partial
+            longer = cost_stress_inputs(device, r, n_lab=RT_COST_LABELS)
             check_cost_inputs(cfg, f"cost r={r}", cuda_cost_wta,
-                              cost_wta_plain, [("stress", args)])
+                              cost_wta_plain, [("stress", args),
+                                               ("stress", longer)])
             check_cost_inputs(cfg, f"cost volume r={r}", cuda_cost_volume,
-                              cost_volume_plain, [("stress", args[1:])])
+                              cost_volume_plain, [("stress", args[1:]),
+                                                  ("stress", longer[1:])])
             continue
         kw = dict(radius=r, max_color_diff=cfg.max_color_diff,
                   bad_ret=cfg.bad_ret)
@@ -1859,8 +1897,7 @@ def check_cost_radii(device, reps):
                 out_bytes = 3 * args[3].numel() * 4
             ms, _ = kernel_ms(call, reps, device,
                               f"cost_wta_kernel<{r}, "
-                              f"{'true' if volume else 'false'}>",
-                              strict=True)
+                              f"{'true' if volume else 'false'}>")
             rows.append(instance_row(
                 f"cost_{'volume' if volume else 'wta'}_r{r}",
                 "cost_volume" if volume else "cost_wta", "cost_wta.cu",
@@ -3511,8 +3548,16 @@ def shard_phase(device, rig, scaling_rows, scene_rgbs, cams_np):
 WIDE_TWOVIEW_RADIUS = 17
 WIDE_MVS_RADIUS, WIDE_TOPK = 8, 32
 # the labels of kernel 4's full-width crop held to the plain version (a
-# slab around the plane's depth), so that each plain run takes seconds
-WIDE_CROP_LABELS = 12
+# slab around the plane's depth), so that each plain run takes seconds:
+# two of the run-time instance's label chunks (8) and a partial one
+WIDE_CROP_LABELS = 20
+# The first run-time instances' figures (PERF.md section 6, runs Z3 and
+# Z5, NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's: their
+# device ms (kernel 4 over all 100 labels) and phase 24's path seconds
+EARLIER_MS = {"mvs_sweep_r8_wta": 82.2661, "mvs_sweep_r8_top32": 89.4254,
+              "cost_wta_r17": 51.08, "cost_volume_r17": 48.78}
+EARLIER_WALL = {"twoview_wide": 0.245, "twoview_wide_mrf": 1.134,
+                "mvs_wide": 1.912, "mvs_wide_mrf": 2.327}
 
 
 def label_slab(depths, n):
@@ -3540,7 +3585,7 @@ def wide_weights_row(device, rgb, radius, paths, reps):
         raise AssertionError(f"geodesic weights r={radius} disagree")
     ms, _ = kernel_ms(lambda: cuda_geodesic_weights(rgb, radius), reps,
                       device, ("geodesic_edges_kernel",
-                               "geodesic_weights_rt_kernel"), strict=True)
+                               "geodesic_weights_rt_kernel"))
     size = 2 * radius + 1
     return instance_row(
         f"geodesic_weights_r{radius}", "geodesic_weights",
@@ -3597,8 +3642,15 @@ def wide_sweep_rows(device, rigw, reps):
         if not exact:
             raise AssertionError(f"sweep r={r} {name} disagrees with its "
                                  "plain version")
-        ms, _ = kernel_ms(call, reps, device, inst, strict=True)
-        counts = sweep_counts(inputs, nv, r, every_pixel=mode != "wta")
+        ms, _ = kernel_ms(call, reps, device, inst)
+        counts, (n_in, n_out, n_bd, w_in, w_bd) = sweep_counts(
+            inputs, nv, r, every_pixel=mode != "wta", by_path=True)
+        row_name = f"mvs_sweep_r{r}_" + ("wta" if mode == "wta"
+                                         else f"top{k}")
+        print(f"  units by path: interior {n_in} (in the window passes; "
+              f"{w_in} warp slots), wholly outside {n_out}, border {n_bd} "
+              f"(one at a time; in {w_bd} warp units); kernel {ms:.4f} ms "
+              f"(earlier instance: {EARLIER_MS[row_name]} ms)")
         n_bytes = sum(t.numel() * t.element_size() for t in args.values()
                       if isinstance(t, torch.Tensor)) + nv.numel() \
             + 2 * d_k.numel() * 4
@@ -3606,11 +3658,10 @@ def wide_sweep_rows(device, rigw, reps):
         if mode != "wta":
             n_ops += 5 * k * h * w * n_lab
         rows.append(instance_row(
-            f"mvs_sweep_r{r}_" + ("wta" if mode == "wta" else f"top{k}"),
-            "mvs_sweep" if mode == "wta" else "mvs_sweep_topk",
+            row_name, "mvs_sweep" if mode == "wta" else "mvs_sweep_topk",
             "mvs_sweep.cu", "pallas_mvs.py:306", 0.0, ms, plain_ms, n_bytes,
             n_ops, f"r={r}, {name}, view 0 {h}x{w}, {n_lab} labels, "
-            f"run-time instance",
+            "run-time instance",
             ("mvs_wide",) if mode == "wta" else ("mvs_wide_mrf",)))
     return rows
 
@@ -3659,10 +3710,9 @@ def wide_cost_rows(device, rig2w, reps):
         if not exact:
             raise AssertionError(f"cost r={r} {mode} disagrees with its "
                                  "plain version")
-        ms, _ = kernel_ms(lambda: kernel(*a, **kw), reps, device, inst,
-                          strict=True)
+        ms, _ = kernel_ms(lambda: kernel(*a, **kw), reps, device, inst)
         full_ms, _ = kernel_ms(lambda: kernel(*a_full, **kw), reps, device,
-                               inst, strict=True)
+                               inst)
         n_bytes = sum(t.numel() * t.element_size() for t in a) \
             + (warped[sl].numel() if volume else 3 * h * w) * 4
         row = instance_row(
@@ -3672,11 +3722,13 @@ def wide_cost_rows(device, rig2w, reps):
             cost_ops(counts, 25 if volume else 30),
             f"r={r}, {mode}, view 0 of the pair {h}x{w}, "
             f"{WIDE_CROP_LABELS} of {warped.shape[0]} labels, run-time "
-            f"instance", ("twoview_wide_mrf",) if volume
+            "instance",
+            ("twoview_wide_mrf",) if volume
             else ("twoview_wide",))
         row["full_ms"] = full_ms
         print(f"  full sweep ({warped.shape[0]} labels): kernel "
-              f"{full_ms:.4f} ms")
+              f"{full_ms:.4f} ms (earlier instance: "
+              f"{EARLIER_MS[f'cost_{mode.lower()}_r{r}']} ms)")
         rows.append(row)
     return rows
 
@@ -3724,9 +3776,10 @@ def wide_phase(device, rig, rig2, true_depth, base_launches, reps):
     t_paths = time.perf_counter() - t0
     for wide, base in WIDE_PATHS.items():
         a, b = PATH_STATS[wide], PATH_STATS[base]
-        print(f"{wide}: {a['wall']:.3f} s, coverage {a['coverage']}; "
-              f"{base} (r <= 7): {b['wall']:.3f} s, coverage "
-              f"{b['coverage']}; launches {launches[wide]}")
+        print(f"{wide}: {a['wall']:.3f} s (earlier: {EARLIER_WALL[wide]} s), "
+              f"coverage {a['coverage']}; {base} (r <= 7): "
+              f"{b['wall']:.3f} s, coverage {b['coverage']}; launches "
+              f"{launches[wide]}")
         if launches[wide] != base_launches[base]:
             raise AssertionError(f"{wide} launched {launches[wide]}, its "
                                  f"r <= 7 path {base_launches[base]}")
@@ -3820,7 +3873,7 @@ def main():
                   f"registers, {k['spill_stores']} B spill stores, "
                   f"{k['spill_loads']} B spill loads, {k['stack']} B stack "
                   f"frame, {k['smem']} B static smem")
-    # r >= 8: the run-time instances (no dynamic shared memory)
+    # r >= 8: the run-time instances
     from stereoreconstruction_tpu_torch.ops import cuda_cost_wta, cuda_weights
     lib = cuda_build.library("geodesic_weights")
     rts = {r: int(cuda_weights.runtime_instance(r)) for r in RADII}
@@ -3830,12 +3883,14 @@ def main():
               f"{lib.geodesic_weights_blocks_per_sm(r, rt)}"
               for r, rt in rts.items()))
     lib = cuda_build.library("mvs_sweep")
-    print("  mvs_sweep run-time instance blocks an SM (WTA/lists): "
-          f"{lib.mvs_sweep_rt_blocks_per_sm(1)}/"
+    print(f"  mvs_sweep run-time instance dynamic smem a block "
+          f"{lib.mvs_sweep_rt_smem_bytes()} B, blocks an SM (runtime "
+          f"occupancy) WTA {lib.mvs_sweep_rt_blocks_per_sm(1)}, lists "
           f"{lib.mvs_sweep_rt_blocks_per_sm(0)}; the compile-time "
           "instances' static smem is ptxas's")
     lib = cuda_build.library("cost_wta")
-    rts = {r: int(cuda_cost_wta.runtime_instance(r)) for r in RADII}
+    rts = {r: int(cuda_cost_wta.runtime_instance(r))
+           for r in RADII + (RT_COST_UNSTAGED_RADIUS,)}
     print("  cost_wta dynamic smem a block and blocks an SM (runtime "
           "occupancy, WTA/volume): " + ", ".join(
               f"r={r} {lib.cost_wta_smem_bytes(r, rt)} B "
@@ -3910,8 +3965,12 @@ def main():
     rows += check_sweep_radii(device, 10)
     rows += check_cost_radii(device, 10)
     print(f"instances gated in {time.perf_counter() - t0:.1f} s")
-    # phase 24 runs here, beside the other kernel gates: after phase 23's
-    # process groups, torch.profiler records no launch in most sessions
+    # phase 24 runs here, beside the other kernel gates: torch.profiler
+    # (its CUPTI tracing) drops launch records in this process once other
+    # processes have run on the card (phase 23's spawned gloo ranks and
+    # torchrun's ranks; its in-process NCCL group alone does not), more so
+    # the more sessions the process has run, and padding the profiled
+    # window does not bring them back (PERF.md section 7)
     t0 = time.perf_counter()
     wide_launches, wide_rows = wide_phase(device, rig, rig2, true_depth,
                                           launches, 10)

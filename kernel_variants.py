@@ -7,7 +7,10 @@ Run from the repository root:
         [--variants NAME ...]
 
 Kernels 1 (``csrc/geodesic_weights.cu``), 2 (``csrc/mvs_sweep.cu``) and 4
-(``csrc/cost_wta.cu``), or those named with ``--kernels``.  Each variant
+(``csrc/cost_wta.cu``) at the main paths' radii, and the run-time
+instances of kernels 2 and 4 (``mvs_sweep_rt``, ``cost_wta_rt``: the same
+sources, timed on the wide-window cell's view 0 at r = 8 and 17 over all
+labels), or those named with ``--kernels``.  Each variant
 is the shipped source with a text substitution that undoes one design
 choice (an ablation), or, with ``--baseline``, the same source from
 another tree's ``csrc`` directory (for example an earlier commit unpacked
@@ -15,20 +18,23 @@ with ``git archive``).  Every variant is built with the port's nvcc flags,
 in parallel, and its registers, spills and shared memory are printed from
 ptxas.  A variant that computes the kernel's function is held to the plain
 versions on ``chip_smoke.py``'s inputs (the main path's view 0 and the
-stress inputs): bit-equal for the sweep and the cost kernel (both modes of
-each), within 2e-5 for the weights; the script exits non-zero if one
+stress inputs; for the run-time instances a slab of view 0's labels and
+the stress inputs at their radius): bit-equal for the sweep and the cost
+kernel (both modes of each), within 2e-5 for the weights; the script exits
+non-zero if one
 disagrees.  A timing-only variant
 (``timing_only``) drops work, so its results differ: it is only timed, to
 show what that work costs.  Each variant is timed twice, in the order
 first..last then last..first, by ``chip_smoke.kernel_ms`` (device time, the
-mean over 10 launches each after an L2 flush).  The last line is one JSON
-object with every result.
+mean over 10 launches each after an L2 flush; 5 for the run-time
+instances).  The last line is one JSON object with every result.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import subprocess
 import tempfile
@@ -185,14 +191,99 @@ COST_VARIANTS = [
        "          reinterpret_cast<const float4*>(rb + (l0 / 4 + p) * NH * 4)[h];",
        "const float4 q = make_float4(h, h + 1, h + 2, h + 3);")], True),
 ]
+# the run-time instances (r >= 8), in the same sources
+SWEEP_RT_PASS = "  auto pass = [&]() {\n    if (n_slots == 0) return;"
+SWEEP_RT_LB = "constexpr int kRtBlocks = 4;"
+SWEEP_RT_VARIANTS = [
+    ("shipped", [], False),
+    ("8 slots a pass",
+     [("constexpr int kRtU = 16;", "constexpr int kRtU = 8;")], False),
+    ("32 slots a pass",
+     [("constexpr int kRtU = 16;", "constexpr int kRtU = 32;")], False),
+    ("12 slots a pass",
+     [("constexpr int kRtU = 16;", "constexpr int kRtU = 12;")], False),
+    ("a border unit a pass (1 border slot)",
+     [("constexpr int kRtB = 4;", "constexpr int kRtB = 1;")], False),
+    ("2 border slots a pass",
+     [("constexpr int kRtB = 4;", "constexpr int kRtB = 2;")], False),
+    ("8 border slots a pass",
+     [("constexpr int kRtB = 4;", "constexpr int kRtB = 8;")], False),
+    ("a unit a pass (1 slot)",
+     [("constexpr int kRtU = 16;", "constexpr int kRtU = 1;")], False),
+    ("32 labels waiting at most",
+     [("constexpr int kRtCL = 128;", "constexpr int kRtCL = 32;")], False),
+    ("the default shared-memory carveout",
+     [("  if (err == cudaSuccess)\n"
+       "    err = cudaFuncSetAttribute(mvs_sweep_rt_kernel<WTA>,",
+       "  if (false)\n"
+       "    err = cudaFuncSetAttribute(mvs_sweep_rt_kernel<WTA>,")], False),
+    ("3 blocks an SM (at most 168 registers)",
+     [(SWEEP_RT_LB, SWEEP_RT_LB.replace("4", "3"))], False),
+    ("left value x weight formed for each slot",
+     [("          s_lr[u] = s_lr[u] + wlk * wr;",
+       "          s_lr[u] = s_lr[u] + (wgt * gl_p[k * HW]) * wr;")], False),
+    ("4 taps in flight",
+     [("constexpr int kRtAhead = 8;", "constexpr int kRtAhead = 4;")], False),
+    ("16 taps in flight",
+     [("constexpr int kRtAhead = 8;", "constexpr int kRtAhead = 16;")],
+     False),
+    ("no border units (timing only)",
+     [("    int r0 = 0, r1 = S, c0 = 0, c1 = S;\n",
+       "    return 0;\n    int r0 = 0, r1 = S, c0 = 0, c1 = S;\n")],
+     True),
+    ("no window passes (timing only)",
+     [(SWEEP_RT_PASS, SWEEP_RT_PASS.replace(
+         "if (n_slots == 0) return;",
+         "if (true) {\n      n_slots = 0;\n      slot_on = 0u;\n"
+         "      return;\n    }"))], True),
+    ("no tap loads in the passes (timing only)",
+     [("const float wr = wgt * __ldg(g + off[u]);",
+       "const float wr = wgt * (float)(off[u] & 255);")], True),
+]
+COST_RT_L = "constexpr int kRtL = 8;"
+COST_RT_G = "constexpr int kRtFullGroup = 8;"
+COST_RT_G4 = COST_RT_G.replace("8", "4")
+COST_RT_VARIANTS = [
+    ("shipped", [], False),
+    ("4 labels a chunk",
+     [(COST_RT_L, COST_RT_L.replace("8", "4")), (COST_RT_G, COST_RT_G4)],
+     False),
+    ("12 labels a chunk",
+     [(COST_RT_L, COST_RT_L.replace("8", "12")), (COST_RT_G, COST_RT_G4)],
+     False),
+    ("16 labels a chunk", [(COST_RT_L, COST_RT_L.replace("8", "16"))], False),
+    ("tile 32 x 4", [("constexpr int kRtTH = 8;", "constexpr int kRtTH = 4;")],
+     False),
+    ("unstaged (every unit the full pass from device memory)",
+     [("constexpr bool kRtStage = true;", "constexpr bool kRtStage = false;")],
+     False),
+    ("no hoisting (every unit the full pass)",
+     [("constexpr bool kRtHoist = true;", "constexpr bool kRtHoist = false;")],
+     False),
+    ("full pass: 4 labels a sweep", [(COST_RT_G, COST_RT_G4)], False),
+    ("weights loaded 4 at a time",
+     [("constexpr int kRtWLoads = 8;", "constexpr int kRtWLoads = 4;")],
+     False),
+    ("weights loaded one at a time",
+     [("constexpr int kRtWLoads = 8;", "constexpr int kRtWLoads = 1;")],
+     False),
+    ("no full pass (timing only)",
+     [("      if (!((full_groups >> l0) & 1u) || !centre) continue;",
+       "      if (true) continue;")], True),
+]
 VARIANTS = {"mvs_sweep": SWEEP_VARIANTS,
             "geodesic_weights": WEIGHTS_VARIANTS,
-            "cost_wta": COST_VARIANTS}
+            "cost_wta": COST_VARIANTS,
+            "mvs_sweep_rt": SWEEP_RT_VARIANTS,
+            "cost_wta_rt": COST_RT_VARIANTS}
+# the source (and library) of each kind
+SOURCE = {"mvs_sweep_rt": "mvs_sweep", "cost_wta_rt": "cost_wta"}
 
 
 def variant_sources(kernel, variants, baseline, tmp):
     """[(name, source path, timing_only)] of one kernel's variants."""
-    text = (CSRC / f"{kernel}.cu").read_text()
+    source = SOURCE.get(kernel, kernel)
+    text = (CSRC / f"{source}.cu").read_text()
     out = []
     for i, (name, subs, timing_only) in enumerate(variants):
         src = text
@@ -205,8 +296,8 @@ def variant_sources(kernel, variants, baseline, tmp):
         path.write_text(src)
         out.append((name, path, timing_only))
     if baseline is not None:
-        src = (baseline / f"{kernel}.cu").read_text()
-        for old, new in BASELINE_ABI.get(kernel, []):
+        src = (baseline / f"{source}.cu").read_text()
+        for old, new in BASELINE_ABI.get(source, []):
             src = src.replace(old, new)
         path = tmp / f"{kernel}_baseline.cu"
         path.write_text(src)
@@ -270,8 +361,7 @@ def sweep_cases(dev, rig, cfg):
     # each call launches one sweep kernel; the top-K list's instance is
     # <2, 9> or the run-time list's <2, 0>, as the variant builds it
     def times():
-        return {mode: cs.kernel_ms(call, 10, dev, "mvs_sweep_kernel<2, ",
-                                   strict=True)[0]
+        return {mode: cs.kernel_ms(call, 10, dev, "mvs_sweep_kernel<2, ")[0]
                 for mode, (call, _) in zip(("WTA", "top-K"), cases)}
 
     return check, times
@@ -339,11 +429,103 @@ def cost_cases(dev, rig):
 
     def times():
         return {"WTA": cs.kernel_ms(lambda: cuda_cost_wta(*view0, **kw), 10,
-                                    dev, "cost_wta_kernel<5, false>",
-                                    strict=True)[0],
+                                    dev, "cost_wta_kernel<5, false>")[0],
                 "volume": cs.kernel_ms(
                     lambda: cuda_cost_volume(*view0[1:], **kw), 10, dev,
-                    "cost_wta_kernel<5, true>", strict=True)[0]}
+                    "cost_wta_kernel<5, true>")[0]}
+
+    return check, times
+
+
+def sweep_rt_cases(dev, rig, cfg):
+    """(check, times) of the sweep's run-time instance at r = 8: bit-equal
+    on the stress input (WTA, lists of 17, 32 over 40 labels that fill and
+    evict, 40 in device memory) and on a 12-label slab of the wide MVS
+    cell's view 0 (WTA, lists of 32); timed on view 0 over all labels."""
+    from stereoreconstruction_tpu_torch.ops.cuda_mvs import (
+        cuda_mvs_topk, cuda_mvs_wta, instance_for)
+
+    r, k = cs.WIDE_MVS_RADIUS, cs.WIDE_TOPK
+    rigw = (rig[0], dataclasses.replace(cfg, window_radius=r, top_k=k),
+            rig[2], rig[3])
+    inputs, nv = cs.sweep_inputs(dev, rigw)
+    thr = float(cfg.ncc_threshold)
+    l0 = cs.label_slab(inputs["depths"], 12)
+    slab = dict(inputs, coords=inputs["coords"][l0:l0 + 12].contiguous(),
+                label0=l0)
+    s_in, s_nv, s_thr = cs.sweep_stress_inputs(dev, r,
+                                               n_lab=cs.RT_FULL_LABELS)
+    gates = [(s_in, s_nv, s_thr, ("wta", 17)),
+             (s_in, s_nv, cs.RT_FULL_THR, (32, 40)), (slab, nv, thr,
+                                                      ("wta", k))]
+    wanted = [cs.plain_sweeps(a, v, r, t, [m for m in modes if m != "wta"],
+                              "wta" in modes) for a, v, t, modes in gates]
+
+    def no_center(d):
+        return {a: b for a, b in d.items() if a != "center_valid"}
+
+    def run(a, v, t, mode):
+        if mode == "wta":
+            return cuda_mvs_wta(nbr_valid=v, radius=r, thr=t, **a)[:2]
+        return cuda_mvs_topk(nbr_valid=v, radius=r, thr=t, top_k=mode,
+                             **no_center(a))[:2]
+
+    def check():
+        return all(torch.equal(g, x) for (a, v, t, modes), want in
+                   zip(gates, wanted) for m in modes
+                   for g, x in zip(run(a, v, t, m), want[m])), {}
+
+    def times():
+        return {("WTA" if m == "wta" else f"top-{m}"): cs.kernel_ms(
+            lambda m=m: run(inputs, nv, thr, m), 5, dev,
+            instance_for(r, 1 if m == "wta" else m, wta=m == "wta"))[0] for m in ("wta", k)}
+
+    return check, times
+
+
+def cost_rt_cases(dev, rig):
+    """(check, times) of the cost kernel's run-time instance at r = 17,
+    both modes: bit-equal on the structured stress input (13 and 21
+    labels) and on a 20-label crop of the wide pair's view 0; timed on
+    view 0 over all labels."""
+    from stereoreconstruction_tpu_torch.config import TwoViewConfig
+    from stereoreconstruction_tpu_torch.ops.cuda_cost_wta import (
+        cost_volume_plain, cost_wta_plain, cuda_cost_volume, cuda_cost_wta,
+        instance_for)
+    from stereoreconstruction_tpu_torch.ops.warp import warp_bilinear
+
+    r = cs.WIDE_TWOVIEW_RADIUS
+    cfg = TwoViewConfig(min_depth=cs.MIN_DEPTH, max_depth=cs.MAX_DEPTH,
+                        num_depth_levels=cs.N_LABELS, image_scale=cs.SCALE,
+                        window_radius=r)
+    tv = cs.twoview_inputs(dev, (rig[0][:2], cfg, rig[2][:2], rig[3][:2]))
+    warped, wvalid = warp_bilinear(tv["coords"], tv["gray_oth"],
+                                   tv["mask_oth"])
+    full = (tv["depths"], warped, wvalid, tv["gray_ref"], tv["left_valid"],
+            tv["weights"])
+    l0 = cs.label_slab(tv["depths"], cs.WIDE_CROP_LABELS)
+    sl = slice(l0, l0 + cs.WIDE_CROP_LABELS)
+    crop = (tv["depths"][sl].contiguous(), warped[sl], wvalid[sl]) + full[3:]
+    kw = dict(radius=r, max_color_diff=cfg.max_color_diff,
+              bad_ret=cfg.bad_ret)
+    inputs = [crop, cs.cost_stress_inputs(dev, r),
+              cs.cost_stress_inputs(dev, r, n_lab=cs.RT_COST_LABELS)]
+    wanted = [(cost_wta_plain(*a, **kw), cost_volume_plain(*a[1:], **kw))
+              for a in inputs]
+
+    def check():
+        return all(
+            all(cs.same_values(g, w) for g, w in zip(
+                cuda_cost_wta(*a, **kw), want_wta))
+            and cs.same_values(cuda_cost_volume(*a[1:], **kw), want_vol)
+            for a, (want_wta, want_vol) in zip(inputs, wanted)), {}
+
+    def times():
+        return {"WTA": cs.kernel_ms(lambda: cuda_cost_wta(*full, **kw), 5,
+                                    dev, instance_for(r))[0],
+                "volume": cs.kernel_ms(
+                    lambda: cuda_cost_volume(*full[1:], **kw), 5, dev,
+                    instance_for(r, volume=True))[0]}
 
     return check, times
 
@@ -395,22 +577,31 @@ def main():
         rig = (cs.port_cameras(cams), cfg, rgbs.astype(np.float32), masks)
         setup = {"mvs_sweep": lambda: sweep_cases(dev, rig, cfg),
                  "geodesic_weights": lambda: weights_cases(dev, rig),
-                 "cost_wta": lambda: cost_cases(dev, rig)}
+                 "cost_wta": lambda: cost_cases(dev, rig),
+                 "mvs_sweep_rt": lambda: sweep_rt_cases(dev, rig, cfg),
+                 "cost_wta_rt": lambda: cost_rt_cases(dev, rig)}
 
         results, failed = [], []
         for kind, variants in kinds.items():
             check, times = setup[kind]()
+            source = SOURCE.get(kind, kind)
             for name, path, timing_only in variants + variants[::-1]:
                 lib, ptxas = libs[path]
-                cuda_build._libs[kind] = lib
+                cuda_build._libs[source] = lib
                 row = dict(kernel=kind, variant=name, timing_only=timing_only,
                            ptxas=ptxas)
                 if not timing_only:
                     row["bit_equal"], extra = check()
                     row.update(extra)
-                if hasattr(lib, "cost_wta_blocks_per_sm"):
+                if kind == "cost_wta":
                     row["blocks_per_sm"] = [lib.cost_wta_blocks_per_sm(v, 5, 0)
                                             for v in (0, 1)]
+                elif kind == "cost_wta_rt":
+                    row["blocks_per_sm"] = [lib.cost_wta_blocks_per_sm(
+                        v, cs.WIDE_TWOVIEW_RADIUS, 1) for v in (0, 1)]
+                elif kind == "mvs_sweep_rt":
+                    row["blocks_per_sm"] = [lib.mvs_sweep_rt_blocks_per_sm(w)
+                                            for w in (1, 0)]
                 row["ms"] = times()
                 ok = timing_only or row["bit_equal"]
                 if not ok:
@@ -422,12 +613,12 @@ def main():
                                     for k, v in row["ms"].items())
                 verdict = "timing only" if timing_only else f"agrees {ok}"
                 if "blocks_per_sm" in row:
-                    verdict += (f"; blocks an SM (WTA, volume) "
+                    verdict += (f"; blocks an SM (WTA, other mode) "
                                 f"{row['blocks_per_sm']}")
                 print(f"{kind} | {name}: {times_s}; {verdict}; {regs}",
                       flush=True)
                 results.append(row)
-            cuda_build._libs[kind] = shipped[kind]
+            cuda_build._libs[source] = shipped[source]
     print(json.dumps({"variants": results}))
     if failed:
         raise SystemExit(f"variants disagree with the plain version: {failed}")

@@ -74,7 +74,7 @@
 // at r = 5, 115 KB at r = 7: 135 KB a block with the halos, so one block an
 // SM there); cost_wta_smem_bytes and cost_wta_blocks_per_sm report both for
 // each r.  Any other radius >= 1 takes the run-time-radius instance below,
-// which reads its weights and warp samples from device memory.
+// which reads its weights from device memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -517,26 +517,117 @@ int blocks_per_sm() {
 // ---------------------------------------------------------------------------
 // The run-time-radius instance (r >= 8, any radius).  At r = 8 the
 // templates' weight planes alone take 289 x 128 x 4 B = 148 KB of a
-// block's shared memory, and from r = 10 the block no longer fits.  This
-// instance keeps nothing in shared memory: one thread a pixel, 32 x 4
-// pixels a block as the templates, the radius a kernel argument.  It walks
-// the labels in chunks of kRtL; for each chunk it walks the window's taps
-// (rows outer, columns inner) and reads each tap's weight from its
-// [S*S, H, W] plane (coalesced across a warp), the left gray and validity,
-// and each label's warp sample and validity straight from device memory
-// (neighbouring pixels and labels share them in L1).  Every label sums all
-// seven sums over the taps where its left mask and warp sample hold, a
-// failing tap taking weight +0 as in the templates' full pass, so each sum
-// is the plain version's in its order.  (The templates' hoisted pass gives
-// the same sums for a label whose every left-mask tap has a valid sample;
-// this instance does not split the two.)  The epilogue, the WTA carry and
-// the volume's stores are the templates'.
+// block's shared memory, and from r = 10 the block no longer fits.  Here
+// the radius is a kernel argument, a block of eight warps owns a 32 x 8
+// pixel tile (a wide window's halo is shared by more pixels than a 32 x 4
+// tile's: 42 x 66 cells for 256 pixels at r = 17), one thread a pixel, and
+// the labels go in chunks of kRtL:
+// - shared memory holds, for the current chunk, the warped halo with four
+//   labels in one 16-byte cell, and a validity word a cell (bit l = label
+//   l of the chunk, bit 31 = the cell's left validity, mask & sample()
+//   validity), staged as the templates stage them (cp.async of 4 bytes,
+//   zeros outside the image and past D; the validity bytes packed); and
+//   the reference gray halo for the whole sweep.  NH (4 kRtL + 8) bytes
+//   with NH halo cells: 110,880 B at r = 17, two blocks an SM.
+// - the weights stay in their [S*S, H, W] planes in device memory (1,225
+//   of them a pixel at r = 17): each chunk reads a pixel's once, coalesced
+//   across a warp, for all kRtL labels, with a tap's left-mask test
+//   (validity bit 31 & weight > 1e-10) applied as it is read (-0.0 outside
+//   the mask, as the templates store it).
+// - the templates' passes: the label-independent sums once a pixel; a
+//   pre-pass ANDs the chunk's validity words over the taps of the left
+//   validity (a superset of the left mask: a unit it flags takes the full
+//   pass, which gives the same sums).  A label that no lane of the warp
+//   flags, in a group of kRtFullGroup labels (the chunk) none flagged,
+//   sums the right-hand sums alone (6 operations a tap and label); a group
+//   with a flagged label sums all seven on the whole warp, a failing tap
+//   taking weight +0 (a unit's sums are the same on either pass).  Taps
+//   run outside and labels inside, each label's sums in tap order.
+// - a radius whose halo does not fit a block's shared memory (r >= 29)
+//   takes the same kernel unstaged: every label the full pass, its warp
+//   samples and validity read from device memory.
+// Epilogue, WTA carry and volume stores are the templates'.  Built with
+// --fmad=false, the costs and picks are the plain version's bit for bit.
+// kernel_variants.py times the other setting of each constant.
 // ---------------------------------------------------------------------------
 
-constexpr int kRtL = 8;            // labels a chunk of the run-time instance
+constexpr int kRtTW = 32;          // tile columns (a warp)
+constexpr int kRtTH = 8;           // tile rows (warps a block)
+constexpr int kRtThreads = kRtTW * kRtTH;
+constexpr int kRtL = 8;            // labels a chunk
+constexpr int kRtFullGroup = 8;    // labels a sweep of the full pass
+constexpr int kRtWLoads = 8;       // weights loaded at once
+constexpr bool kRtStage = true;    // the halos in shared memory
+constexpr bool kRtHoist = true;    // the pre-pass and the 3-sum pass
+constexpr uint32_t kLeftBit = 0x80000000u;
+static_assert(kRtL % 4 == 0 && kRtL <= 31,
+              "a chunk fills 16-byte cells and its bits fit below bit 31");
+static_assert(kRtL % kRtFullGroup == 0 && kRtFullGroup % 4 == 0,
+              "the full pass's groups tile a chunk in 16-byte cells");
+// a block's shared memory, at most (the card's limit for one block)
+constexpr size_t kRtMaxSmem = 232448;
+
+// The dynamic shared memory of a block at radius rad (the warped halo,
+// validity words and gray halo of its tile); 0 where they do not fit (the
+// unstaged path).
+size_t rt_smem_bytes(int rad) {
+  if (!kRtStage) return 0;
+  const size_t nh = (size_t)(kRtTH + 2 * rad) * (kRtTW + 2 * rad);
+  const size_t bytes = nh * (4 * kRtL + 8);
+  return bytes <= kRtMaxSmem ? bytes : 0;
+}
+
+// Every sum of labels [l0, l0 + kRtFullGroup) of a chunk over the taps
+// where the left mask and the label's warp sample hold (a failing tap
+// takes weight +0, so every term it adds is an exact 0), in tap order;
+// the costs of the centre-valid ones into cost.  tap(s, t, w, g, v, r)
+// gives a tap's weight, left gray, validity word (bit 31 the left
+// validity, bit j label l0 + j) and the group's warp samples.
+template <class Tap>
+__device__ __forceinline__ void full_group(int S, int l0, uint32_t centre,
+                                           float max_color_diff,
+                                           float bad_ret, float* cost,
+                                           const Tap& tap) {
+  float sw[kRtFullGroup], sl[kRtFullGroup], sr[kRtFullGroup],
+      sll[kRtFullGroup], srr[kRtFullGroup], slr[kRtFullGroup];
+  int sn[kRtFullGroup];
+#pragma unroll
+  for (int j = 0; j < kRtFullGroup; ++j) {
+    sw[j] = sl[j] = sr[j] = sll[j] = srr[j] = slr[j] = 0.f;
+    sn[j] = 0;
+  }
+  for (int s = 0; s < S; ++s) {
+#pragma unroll (kRtWLoads)
+    for (int t = 0; t < S; ++t) {
+      float wk, g, r[kRtFullGroup];
+      uint32_t v;
+      tap(s, t, wk, g, v, r);
+      const uint32_t on = (v & kLeftBit) && wk > kWeps ? v : 0u;
+#pragma unroll
+      for (int j = 0; j < kRtFullGroup; ++j) {
+        const bool b = on & (1u << j);
+        const float wj = b ? wk : 0.f;
+        const float wl = wj * g;
+        const float wr = wj * r[j];
+        sw[j] = sw[j] + wj;
+        sl[j] = sl[j] + wl;
+        sr[j] = sr[j] + wr;
+        sll[j] = sll[j] + wl * wl;
+        srr[j] = srr[j] + wr * wr;
+        slr[j] = slr[j] + wl * wr;
+        sn[j] += b;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kRtFullGroup; ++j)
+    if ((centre >> (l0 + j)) & 1u)
+      cost[l0 + j] = ncc_cost(sw[j], sl[j], sr[j], sll[j], srr[j], slr[j],
+                              (float)sn[j], max_color_diff, bad_ret);
+}
 
 template <bool kVolume>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRtThreads, 2)
 cost_wta_rt_kernel(const float* __restrict__ depths,
                    const float* __restrict__ warped,
                    const uint8_t* __restrict__ wvalid,
@@ -545,65 +636,20 @@ cost_wta_rt_kernel(const float* __restrict__ depths,
                    const float* __restrict__ weights,
                    float* __restrict__ min_out, float* __restrict__ second_out,
                    float* __restrict__ best_out, int H, int W, int D, int rad,
-                   float max_color_diff, float bad_ret) {
-  const int x = blockIdx.x * kTW + threadIdx.x % kTW;
-  const int y = blockIdx.y * kTH + threadIdx.x / kTW;
-  if (x >= W || y >= H) return;
+                   float max_color_diff, float bad_ret, int staged) {
+  extern __shared__ __align__(16) float rt_smem[];
+  const int tid = threadIdx.x;
+  const int tx = tid % kRtTW, ty = tid / kRtTW;
+  const int x0 = blockIdx.x * kRtTW, y0 = blockIdx.y * kRtTH;
+  const int x = x0 + tx, y = y0 + ty;
+  const bool inside = x < W && y < H;
   const int S = 2 * rad + 1;
   const size_t HWp = (size_t)H * W;
-  const size_t p = (size_t)y * W + x;
-
+  const size_t p = inside ? (size_t)y * W + x : 0;
+  const float* w_p = weights + p;
   float min_c = INFINITY, second = INFINITY, best = NAN;
-  for (int c0 = 0; c0 < D; c0 += kRtL) {
-    // labels of the chunk whose own warp sample is valid (none past D)
-    uint32_t centre = 0u;
-    for (int l = 0; l < kRtL; ++l)
-      if (c0 + l < D && wvalid[(c0 + l) * HWp + p]) centre |= 1u << l;
-    float cost[kRtL];
-    for (int l = 0; l < kRtL; ++l) cost[l] = INFINITY;
-    if (centre) {
-      float sw[kRtL], sl[kRtL], sr[kRtL], sll[kRtL], srr[kRtL], slr[kRtL];
-      int sn[kRtL];
-      for (int l = 0; l < kRtL; ++l) {
-        sw[l] = sl[l] = sr[l] = sll[l] = srr[l] = slr[l] = 0.f;
-        sn[l] = 0;
-      }
-      for (int s = 0; s < S; ++s) {
-        const int ly = y + s - rad;
-        const bool row_in = ly >= 0 && ly < H;
-        for (int t = 0; t < S; ++t) {
-          const int lx = x + t - rad;
-          const bool in = row_in && lx >= 0 && lx < W;
-          const size_t q = in ? (size_t)ly * W + lx : 0;
-          const float wk = weights[(size_t)(s * S + t) * HWp + p];
-          const bool on = in && left_valid[q] && wk > kWeps;
-          const float g = in ? gray_ref[q] : 0.f;
-#pragma unroll
-          for (int l = 0; l < kRtL; ++l) {
-            const int d = c0 + l;
-            const bool smp = in && d < D;
-            // the warp sample (0 outside the image and past D, as the
-            // templates' zero-filled halo)
-            const float r = smp ? warped[d * HWp + q] : 0.f;
-            const bool b = on && smp && wvalid[d * HWp + q];
-            const float wj = b ? wk : 0.f;
-            const float wl = wj * g;
-            const float wr = wj * r;
-            sw[l] = sw[l] + wj;
-            sl[l] = sl[l] + wl;
-            sr[l] = sr[l] + wr;
-            sll[l] = sll[l] + wl * wl;
-            srr[l] = srr[l] + wr * wr;
-            slr[l] = slr[l] + wl * wr;
-            sn[l] += b;
-          }
-        }
-      }
-      for (int l = 0; l < kRtL; ++l)
-        if ((centre >> l) & 1u)
-          cost[l] = ncc_cost(sw[l], sl[l], sr[l], sll[l], srr[l], slr[l],
-                             (float)sn[l], max_color_diff, bad_ret);
-    }
+  // the WTA carry, or the volume's stores, of a chunk's costs
+  auto emit = [&](int c0, const float* cost) {
     for (int l = 0; l < kRtL; ++l) {
       const int d = c0 + l;
       if (d >= D) break;
@@ -615,12 +661,224 @@ cost_wta_rt_kernel(const float* __restrict__ depths,
         best = depths[d];
       }
     }
+  };
+
+  if (!staged) {
+    // every label the full pass, read from device memory
+    if (!inside) return;
+    for (int c0 = 0; c0 < D; c0 += kRtL) {
+      uint32_t centre = 0u;
+      for (int l = 0; l < kRtL; ++l)
+        if (c0 + l < D && wvalid[(c0 + l) * HWp + p]) centre |= 1u << l;
+      float cost[kRtL];
+#pragma unroll
+      for (int l = 0; l < kRtL; ++l) cost[l] = INFINITY;
+      for (int l0 = 0; centre && l0 < kRtL; l0 += kRtFullGroup) {
+        full_group(S, l0, centre, max_color_diff, bad_ret, cost,
+                   [&](int s, int t, float& wk, float& g, uint32_t& v,
+                       float (&r)[kRtFullGroup]) {
+          const int ly = y + s - rad, lx = x + t - rad;
+          const bool in = ly >= 0 && ly < H && lx >= 0 && lx < W;
+          const size_t q = in ? (size_t)ly * W + lx : 0;
+          wk = w_p[(size_t)(s * S + t) * HWp];
+          g = in ? gray_ref[q] : 0.f;
+          v = in && left_valid[q] ? kLeftBit : 0u;
+#pragma unroll
+          for (int j = 0; j < kRtFullGroup; ++j) {
+            const int d = c0 + l0 + j;
+            const bool smp = in && d < D;
+            // 0 outside the image and past D, as the staged halo
+            r[j] = smp ? warped[d * HWp + q] : 0.f;
+            if (smp && wvalid[d * HWp + q]) v |= 1u << j;
+          }
+        });
+      }
+      emit(c0, cost);
+    }
+    if (!kVolume) {
+      min_out[p] = min_c;
+      second_out[p] = second;
+      best_out[p] = best;
+    }
+    return;
   }
-  if (!kVolume) {
+
+  const int HC = kRtTW + 2 * rad;            // halo columns (the stride)
+  const int NH = (kRtTH + 2 * rad) * HC;     // halo cells
+  float* r_s = rt_smem;                      // [kRtL / 4][NH][4] warped
+  uint32_t* v_s = reinterpret_cast<uint32_t*>(r_s + kRtL * NH);   // [NH]
+  float* g_s = reinterpret_cast<float*>(v_s + NH);                // [NH]
+  // Stages chunk c0's warped halo (cp.async) and validity words.
+  auto stage = [&](int c0) {
+    for (int i = tid; i < NH; i += kRtThreads) {
+      const int hy = y0 - rad + i / HC, hx = x0 - rad + i % HC;
+      const bool in = hy >= 0 && hy < H && hx >= 0 && hx < W;
+      const size_t q = in ? (size_t)hy * W + hx : 0;
+      uint32_t word = in && left_valid[q] ? kLeftBit : 0u;
+#pragma unroll
+      for (int l = 0; l < kRtL; ++l) {
+        const int d = c0 + l;
+        const bool ok = in && d < D;
+        const size_t off = ok ? (size_t)d * HWp + q : 0;
+        cp_async4(r_s + ((l / 4) * NH + i) * 4 + l % 4, warped + off, ok);
+        if (ok && wvalid[off]) word |= 1u << l;
+      }
+      v_s[i] = word;
+    }
+    cp_async_commit();
+  };
+  stage(0);
+  for (int i = tid; i < NH; i += kRtThreads) {
+    const int hy = y0 - rad + i / HC, hx = x0 - rad + i % HC;
+    const bool in = hy >= 0 && hy < H && hx >= 0 && hx < W;
+    cp_async4(g_s + i, gray_ref + (in ? (size_t)hy * W + hx : 0), in);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // the label-independent sums over the left mask, in tap order (a
+  // skipped tap adds an exact +0)
+  float h_w = 0.f, h_l = 0.f, h_ll = 0.f, h_n = 0.f;
+  for (int s = 0; inside && s < S; ++s) {
+    const int hrow = (ty + s) * HC + tx;
+    for (int t = 0; t < S; ++t) {
+      const float wk = w_p[(size_t)(s * S + t) * HWp];
+      const bool on = (v_s[hrow + t] & kLeftBit) && wk > kWeps;
+      const float wl = wk * g_s[hrow + t];
+      h_w = h_w + (on ? wk : 0.f);
+      h_l = h_l + (on ? wl : 0.f);
+      h_ll = h_ll + (on ? wl * wl : 0.f);
+      h_n = h_n + (on ? 1.f : 0.f);
+    }
+  }
+
+  constexpr uint32_t kLabels = (1u << kRtL) - 1u;
+  const int hc = (ty + rad) * HC + tx + rad;   // the pixel's own cell
+  for (int c0 = 0; c0 < D; c0 += kRtL) {
+    if (c0 > 0) {
+      stage(c0);
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    // labels whose own warp sample is valid (none past D)
+    const uint32_t centre = inside ? v_s[hc] & kLabels : 0u;
+    // labels with an invalid warp sample on a tap of the left validity
+    uint32_t broken = 0u;
+    if (centre) {
+      uint32_t all_valid = kRtHoist ? ~0u : 0u;
+      for (int s = 0; kRtHoist && s < S; ++s) {
+        const uint32_t* vrow = v_s + (ty + s) * HC + tx;
+        for (int t = 0; t < S; ++t) {
+          const uint32_t v = vrow[t];
+          all_valid &= v | ~(uint32_t)((int32_t)v >> 31);
+        }
+      }
+      broken = centre & ~all_valid;
+    }
+    float cost[kRtL];
+#pragma unroll
+    for (int l = 0; l < kRtL; ++l) cost[l] = INFINITY;
+    // a group of labels with a unit that is not, on any lane of the warp,
+    // takes the full pass on the whole warp; the others the hoisted pass
+    const uint32_t full_labels = __reduce_or_sync(0xffffffffu, broken);
+    uint32_t full_groups = 0u;
+#pragma unroll
+    for (int l0 = 0; l0 < kRtL; l0 += kRtFullGroup) {
+      const uint32_t group = ((1u << kRtFullGroup) - 1u) << l0;
+      if (full_labels & group) full_groups |= group;
+    }
+    // the right-hand sums alone, taps outside the left mask adding exact
+    // zeros
+    if (centre & ~full_groups) {
+      float sr[kRtL], srr[kRtL], slr[kRtL];
+#pragma unroll
+      for (int l = 0; l < kRtL; ++l) sr[l] = srr[l] = slr[l] = 0.f;
+      // tap h with weight w: -0.0 off the left mask
+      auto add = [&](int h, float w) {
+        const float wk = (v_s[h] & kLeftBit) && w > kWeps ? w : -0.f;
+        const float wl = wk * g_s[h];
+        float r[kRtL];
+#pragma unroll
+        for (int q = 0; q < kRtL / 4; ++q) {
+          const float4 c4 =
+              reinterpret_cast<const float4*>(r_s)[q * NH + h];
+          r[4 * q] = c4.x;
+          r[4 * q + 1] = c4.y;
+          r[4 * q + 2] = c4.z;
+          r[4 * q + 3] = c4.w;
+        }
+#pragma unroll
+        for (int l = 0; l < kRtL; ++l) {
+          const float wr = wk * r[l];
+          sr[l] = sr[l] + wr;
+          srr[l] = srr[l] + wr * wr;
+          slr[l] = slr[l] + wl * wr;
+        }
+      };
+      for (int s = 0; s < S; ++s) {
+        const float* wrow = w_p + (size_t)(s * S) * HWp;
+        const int hrow = (ty + s) * HC + tx;
+        // kRtWLoads weights in flight at a time
+        int t = 0;
+        for (; t + kRtWLoads <= S; t += kRtWLoads) {
+          float wv[kRtWLoads];
+#pragma unroll
+          for (int j = 0; j < kRtWLoads; ++j) wv[j] = wrow[(t + j) * HWp];
+#pragma unroll
+          for (int j = 0; j < kRtWLoads; ++j) add(hrow + t + j, wv[j]);
+        }
+        for (; t < S; ++t) add(hrow + t, wrow[t * HWp]);
+      }
+#pragma unroll
+      for (int l = 0; l < kRtL; ++l)
+        if ((centre >> l) & 1u)
+          cost[l] = ncc_cost(h_w, h_l, sr[l], h_ll, srr[l], slr[l], h_n,
+                             max_color_diff, bad_ret);
+    }
+    // every sum, for the groups of labels with a full-pass label
+#pragma unroll
+    for (int l0 = 0; l0 < kRtL; l0 += kRtFullGroup) {
+      if (!((full_groups >> l0) & 1u) || !centre) continue;
+      full_group(S, l0, centre, max_color_diff, bad_ret, cost,
+                 [&](int s, int t, float& wk, float& g, uint32_t& v,
+                     float (&r)[kRtFullGroup]) {
+        const int h = (ty + s) * HC + tx + t;
+        wk = w_p[(size_t)(s * S + t) * HWp];
+        g = g_s[h];
+        const uint32_t word = v_s[h];
+        v = (word & kLeftBit) | (word >> l0 & ((1u << kRtFullGroup) - 1u));
+#pragma unroll
+        for (int q = 0; q < kRtFullGroup / 4; ++q) {
+          const float4 c4 =
+              reinterpret_cast<const float4*>(r_s)[(l0 / 4 + q) * NH + h];
+          r[4 * q] = c4.x;
+          r[4 * q + 1] = c4.y;
+          r[4 * q + 2] = c4.z;
+          r[4 * q + 3] = c4.w;
+        }
+      });
+    }
+    if (inside) emit(c0, cost);
+    __syncthreads();                         // this chunk's buffer is free
+  }
+  if (!kVolume && inside) {
     min_out[p] = min_c;
     second_out[p] = second;
     best_out[p] = best;
   }
+}
+
+template <bool kVolume>
+cudaError_t configure_rt(size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      cost_wta_rt_kernel<kVolume>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(cost_wta_rt_kernel<kVolume>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  return err;
 }
 
 template <bool kVolume>
@@ -630,18 +888,24 @@ int launch_rt(const float* depths, const float* warped,
               float* min_out, float* second_out, float* best_out, int H,
               int W, int D, int radius, float max_color_diff, float bad_ret,
               cudaStream_t stream) {
-  const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH);
-  cost_wta_rt_kernel<kVolume><<<grid, kThreads, 0, stream>>>(
+  const size_t smem = rt_smem_bytes(radius);
+  const cudaError_t err = configure_rt<kVolume>(smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((W + kRtTW - 1) / kRtTW, (H + kRtTH - 1) / kRtTH);
+  cost_wta_rt_kernel<kVolume><<<grid, kRtThreads, smem, stream>>>(
       depths, warped, wvalid, gray_ref, left_valid, weights, min_out,
-      second_out, best_out, H, W, D, radius, max_color_diff, bad_ret);
+      second_out, best_out, H, W, D, radius, max_color_diff, bad_ret,
+      smem > 0);
   return (int)cudaGetLastError();
 }
 
 template <bool kVolume>
-int rt_blocks_per_sm() {
+int rt_blocks_per_sm(int radius) {
+  const size_t smem = rt_smem_bytes(radius);
   int n = 0;
+  if (configure_rt<kVolume>(smem) != cudaSuccess) return 0;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &n, cost_wta_rt_kernel<kVolume>, kThreads, 0) == cudaSuccess
+             &n, cost_wta_rt_kernel<kVolume>, kRtThreads, smem) == cudaSuccess
              ? n
              : 0;
 }
@@ -725,7 +989,8 @@ extern "C" int cost_volume_launch(const float* warped, const uint8_t* wvalid,
 // error or for a compile-time instance the library does not have.
 extern "C" int cost_wta_blocks_per_sm(int volume, int radius, int rt) {
   if (rt)
-    return volume ? rt_blocks_per_sm<true>() : rt_blocks_per_sm<false>();
+    return volume ? rt_blocks_per_sm<true>(radius)
+                  : rt_blocks_per_sm<false>(radius);
   switch (radius) {
 #define COST_CASE(r)                                                    \
   case r:                                                               \
@@ -738,10 +1003,11 @@ extern "C" int cost_wta_blocks_per_sm(int volume, int radius, int rt) {
 }
 
 // The dynamic shared memory a block of the radius's compile-time instance
-// (rt = 0) or of the run-time instance (rt = 1, none) takes, in bytes; -1
-// for a compile-time instance the library does not have.
+// (rt = 0) or of the run-time instance (rt = 1; 0 where it runs unstaged)
+// takes, in bytes; -1 for a compile-time instance the library does not
+// have.
 extern "C" int cost_wta_smem_bytes(int radius, int rt) {
-  if (rt) return 0;
+  if (rt) return (int)rt_smem_bytes(radius);
   switch (radius) {
 #define COST_CASE(r) \
   case r:            \

@@ -480,20 +480,82 @@ bool dispatch(int list_k, int n_topk, const float* depths,
 // templates' per-thread arrays and one-word row and column masks stop
 // there), a list longer than 16, or more than 32 neighbours (the
 // templates' neighbour mask is one word).  The radius is a kernel argument
-// and the tap loops run at run time.  A thread keeps nothing of its window
-// in registers: each tap's weight, left value and left validity are read
-// from their [S*S, H, W] planes (coalesced across a warp, cached), a left
-// value x weight recomputed as the templates compute it, and a padded
-// neighbour is skipped by reading nbr_valid.  The list of a top-K sweep
-// lives in the output planes [K, H, W] themselves, inserted into by a
-// run-time loop with the unrolled insertion's comparisons.  Its paths and
+// and the tap loops run at run time.
+//
+// A wide window's planes do not stay near the SM: at r = 8 a pixel's 289
+// weights, left values and mask bytes take 2.6 KB, a block's 333 KB, and
+// the ~300 (label, neighbour) units of a pixel would each stream them
+// again.  So a thread walks the window once for many units:
+// - interior units (the templates' test) are gathered in order into kRtU
+//   slots (the top-left offset of the unit's window in the neighbour
+//   images), border units into kRtB border slots (the window's clamped
+//   origin and its runs of rows and columns in range: float addition
+//   rounds monotonically, so each is one run, found once a unit).  A pass
+//   over the window for one kind of slot reads each tap's weight, left
+//   value and mask once and forms the left value x weight once, for every
+//   slot.  The weights and left values arrive through a ring in shared
+//   memory, kRtAhead taps ahead (cp.async), so their loads from device
+//   memory overlap the taps before them.  An interior slot adds the three
+//   right-hand sums, a tap off the mask weighing +0 (exact zeros); a
+//   border slot all seven over its valid taps, each read at its clamped
+//   index.  Each unit's sums go in row-major tap order, so they are the
+//   plain version's;
+// - a slot is one (label, neighbour) on every lane of the warp: the warp
+//   takes one when any lane has such a unit (a vote), a lane that has not
+//   leaving it off.  So a slot's tap loads are coalesced (32 neighbouring
+//   pixels project to neighbouring taps), and the lanes pass together;
+// - a unit whose window is wholly outside the image (the plain version's
+//   empty window) folds into its label's carry at once;
+// - a label's candidate is the max of its units' NCCs (order-free), and
+//   the labels enter the list in label order: the carries of up to kRtCL
+//   labels wait in local memory; at kRtCL, and at the end, both passes
+//   run and the waiting labels are inserted.
+// A top-K list lives in the output planes [K, H, W] (a list in shared
+// memory measured slower: it takes the L1 that caches the neighbour
+// images).  The insertion is the templates', entry
+// by entry, reading entry j + 1 before writing entry j.  The paths and
 // their arithmetic are the templates' (interior, wholly outside, border;
-// the label-independent sums hoisted once a pixel), tap by tap in the same
-// order, so its NCC values and picks are the plain version's bit for bit.
+// the label-independent sums hoisted once a pixel), so the NCC values and
+// picks are the plain version's bit for bit.  kernel_variants.py times
+// the other setting of each constant.
 // ---------------------------------------------------------------------------
 
+constexpr int kRtU = 16;        // slots: interior units a pass over the window
+constexpr int kRtB = 4;         // border slots: border units a pass
+constexpr int kRtCL = 128;      // labels whose carries wait for a pass
+constexpr int kRtAhead = 8;     // taps whose weights are in flight
+constexpr int kRtBlocks = 4;    // blocks an SM (at most 128 registers)
+static_assert(kRtCL <= 256, "a slot's label is one byte");
+
+// The dynamic shared memory of a block: the slots' and border slots'
+// labels [kRtU + kRtB][thread] (bytes), the ring of the taps in flight
+// [kRtRing][2][thread] (weight, left value; one slot more than the taps in
+// flight, so that a copy never lands in the slot the same step reads).
+constexpr int kRtRing = kRtAhead + 1;
+constexpr size_t kRtLabBytes = (kRtU + kRtB + 3) / 4 * 4;
+constexpr size_t kRtSmemBytes =
+    (kRtLabBytes + 2 * kRtRing * sizeof(float)) * kBlockX * kBlockY;
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool copy) {
+  // copies 4 bytes, or zero-fills them when !copy (src is then not read)
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(copy ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// waits until at most N of this thread's cp.async groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 template <bool WTA>
-__global__ void __launch_bounds__(kBlockX * kBlockY)
+__global__ void __launch_bounds__(kBlockX * kBlockY, kRtBlocks)
 mvs_sweep_rt_kernel(const float* __restrict__ depths,
                     const float* __restrict__ coords,
                     const float* __restrict__ gray_nbr,
@@ -505,20 +567,28 @@ mvs_sweep_rt_kernel(const float* __restrict__ depths,
                     float* __restrict__ ncc_out, float* __restrict__ depth_out,
                     int H, int W, int N, int hs, int ws, int label0,
                     int n_labels, float thr, int rad, int n_list) {
+  constexpr int NT = kBlockX * kBlockY;
+  extern __shared__ __align__(16) float rt_smem[];
+  const int tid = threadIdx.y * kBlockX + threadIdx.x;
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int y = blockIdx.y * kBlockY + threadIdx.y;
-  if (x >= W || y >= H) return;
   const size_t HW = (size_t)H * W;
-  const size_t p = (size_t)y * W + x;
-  if (WTA && center_valid != nullptr && !center_valid[p]) {
+  const bool in_img = x < W && y < H;
+  const size_t p = in_img ? (size_t)y * W + x : 0;
+  // a lane that sweeps nothing (past the image's edge, or a masked centre
+  // of the WTA) stays for its warp's votes; a warp with none that sweeps
+  // leaves
+  bool active = in_img;
+  if (WTA && in_img && center_valid != nullptr && !center_valid[p]) {
     ncc_out[p] = -INFINITY;
     depth_out[p] = -1.f;
-    return;
+    active = false;
   }
+  if (!__any_sync(0xffffffffu, active)) return;
   const int S = 2 * rad + 1;
   const int T = S * S;
   const float frad = (float)rad;
-  // tap k of this pixel: its weight, left value x weight and mask bit
+  // tap k of this pixel: its weight, left value and mask bit
   const float* wk_p = wts + p;
   const float* gl_p = gl + p;
   const uint8_t* lv_p = lv + p;
@@ -529,7 +599,7 @@ mvs_sweep_rt_kernel(const float* __restrict__ depths,
   // the label-independent sums of an interior window, row-major
   float h_w = 0.f, h_l = 0.f, h_ll = 0.f, h_cnt = 0.f;
   int n_on = 0;
-  for (int k = 0; k < T; ++k) {
+  for (int k = 0; active && k < T; ++k) {
     const float wgt = wk_p[k * HW];
     if (tap_on(k, wgt)) {
       const float wlk = wgt * gl_p[k * HW];
@@ -544,132 +614,345 @@ mvs_sweep_rt_kernel(const float* __restrict__ depths,
   const bool all_on = n_on == T;
 
   const float fws = (float)ws, fhs = (float)hs;
-  // WTA: the carry (lo, lo_d) in registers.  Lists: entry j of this pixel
-  // at ncc_out / depth_out[j * HW + p], ascending, lo its smallest ncc.
+  // carry j: the running max of label i_first + j's units (local memory,
+  // cached; read and written a few times a label)
+  float carry[kRtCL];
+  uint8_t* slot_lab = reinterpret_cast<uint8_t*>(rt_smem) + tid;
+  // the ring of the taps in flight: tap k's weight and left value at
+  // [k % kRtRing][0 / 1][thread]
+  float* ring = reinterpret_cast<float*>(reinterpret_cast<uint8_t*>(rt_smem)
+                                         + kRtLabBytes * NT) + tid;
+  // WTA: the carry (lo, lo_d) in registers.  Lists: entry j at l_n / l_d
+  // [j * HW], ascending, lo its smallest ncc
+  float* l_n = ncc_out + p;
+  float* l_d = depth_out + p;
   float lo = -INFINITY, lo_d = -1.f;
-  if (!WTA) {
+  if (!WTA && active) {
     for (int j = 0; j < n_list; ++j) {
-      ncc_out[j * HW + p] = -INFINITY;
-      depth_out[j * HW + p] = -1.f;
+      l_n[j * HW] = -INFINITY;
+      l_d[j * HW] = -1.f;
     }
   }
-  const float* cxy = coords + p;
-  float x2_ahead = cxy[0], y2_ahead = cxy[HW];
-  for (int i = 0; i < n_labels; ++i) {
-    float m = -INFINITY;
-    for (int n = 0; n < N; ++n) {
-      const float x2 = x2_ahead, y2 = y2_ahead;
-      if (i + 1 < n_labels || n + 1 < N) {
-        cxy += 2 * HW;
-        x2_ahead = cxy[0];
-        y2_ahead = cxy[HW];
-      }
-      if (!nbr_valid[n] || !(x2 > -1e6f)) continue;
-      if (!(x2 + frad > -1.f) || !(x2 - frad < fws) || !(y2 + frad > -1.f)
-          || !(y2 - frad < fhs)) {
-        m = fmaxf(m, (0.f > thr) ? 0.f : -INFINITY);
-        continue;
-      }
-      const float ixf = floorf(fminf(fmaxf(x2, -1e6f), 1e6f));
-      const float iyf = floorf(fminf(fmaxf(y2, -1e6f), 1e6f));
-      const float* img = gray_nbr + (size_t)n * hs * ws;
-      float q;
-      if (ixf - frad >= 0.f && ixf + frad <= fws - 1.f && x2 - frad > -1.f
-          && x2 + frad < fws && iyf - frad >= 0.f
-          && iyf + frad <= fhs - 1.f && y2 - frad > -1.f
-          && y2 + frad < fhs) {
-        // interior: every tap in range, valid iff its mask bit is set
-        const float* top = img + ((int)iyf - rad) * ws + ((int)ixf - rad);
-        float s_r = 0.f, s_rr = 0.f, s_lr = 0.f;
-        for (int r = 0; r < S; ++r) {
-          for (int c = 0; c < S; ++c) {
-            const int k = r * S + c;
-            const float wgt = wk_p[k * HW];
-            if (all_on || tap_on(k, wgt)) {
-              const float wr = wgt * __ldg(top + r * ws + c);
-              s_r = s_r + wr;
-              s_rr = s_rr + wr * wr;
-              s_lr = s_lr + (wgt * gl_p[k * HW]) * wr;
-            }
-          }
-        }
-        q = ncc_from_sums(inner, s_r, s_rr, s_lr);
-      } else {
-        // border: per-tap range tests and clamped reads, sums predicated
-        float s_w = 0.f, s_l = 0.f, s_r = 0.f, s_ll = 0.f, s_rr = 0.f,
-              s_lr = 0.f, cnt = 0.f;
-        for (int r = 0; r < S; ++r) {
-          const float yr = y2 + (float)(r - rad);
-          const bool row_ok = yr > -1.f && yr < fhs;
-          const int jy =
-              (int)fminf(fmaxf(iyf + (float)(r - rad), 0.f), fhs - 1.f) * ws;
-          for (int c = 0; c < S; ++c) {
-            const int k = r * S + c;
-            const float xc = x2 + (float)(c - rad);
-            const int jx =
-                (int)fminf(fmaxf(ixf + (float)(c - rad), 0.f), fws - 1.f);
-            const float wgt = wk_p[k * HW];
-            const float wlk = wgt * gl_p[k * HW];
-            const float wr = wgt * __ldg(img + jy + jx);
-            if (row_ok && xc > -1.f && xc < fws && tap_on(k, wgt)) {
-              s_w = s_w + wgt;
-              s_l = s_l + wlk;
-              s_r = s_r + wr;
-              s_ll = s_ll + wlk * wlk;
-              s_rr = s_rr + wr * wr;
-              s_lr = s_lr + wlk * wr;
-              cnt = cnt + 1.f;
-            }
-          }
-        }
-        q = ncc_from_sums(left_terms(s_w, s_l, s_ll, cnt), s_r, s_rr, s_lr);
-      }
-      m = fmaxf(m, (q > thr) ? q : -INFINITY);
-    }
-    // the insertion of mvs_sweep_kernel, entry by entry: entry j takes
-    // t[j+1] if t[j+1] <= m, else m if t[j] <= m, else t[j] (t[K] = +inf),
-    // reading entry j + 1 before entry j is written
-    const float depth = depths[label0 + i];
+  // the insertion of mvs_sweep_kernel, entry by entry: entry j takes
+  // t[j+1] if t[j+1] <= m, else m if t[j] <= m, else t[j] (t[K] = +inf),
+  // reading entry j + 1 before entry j is written
+  auto insert = [&](float m, float depth) {
     if (WTA) {
       if (lo <= m) {
         lo = m;
         lo_d = depth;
       }
     } else if (m > -INFINITY && lo <= m) {
-      float t_n = ncc_out[p], t_d = depth_out[p];
+      float t_n = l_n[0], t_d = l_d[0];
       for (int j = 0; j < n_list; ++j) {
         const bool last = j + 1 == n_list;
-        const float u_n = last ? INFINITY : ncc_out[(j + 1) * HW + p];
-        const float u_d = last ? -1.f : depth_out[(j + 1) * HW + p];
+        const float u_n = last ? INFINITY : l_n[(j + 1) * HW];
+        const float u_d = last ? -1.f : l_d[(j + 1) * HW];
         const bool next = !last && u_n <= m;
         const bool here = t_n <= m;
-        ncc_out[j * HW + p] = next ? u_n : here ? m : t_n;
-        depth_out[j * HW + p] = next ? u_d : here ? depth : t_d;
+        l_n[j * HW] = next ? u_n : here ? m : t_n;
+        l_d[j * HW] = next ? u_d : here ? depth : t_d;
         t_n = u_n;
         t_d = u_d;
       }
-      lo = ncc_out[p];
+      lo = l_n[0];
+    }
+  };
+
+  // Tap k's weight and left value for a pass over the window, k = 0, 1,
+  // ... in turn: each is copied into the ring kRtAhead taps ahead
+  // (cp.async), so that its load from device memory overlaps the taps
+  // before it.  start() fills the ring for a pass.
+  auto fetch = [&](int k) {
+    if (k < T) {
+      float* q = ring + (k % kRtRing) * 2 * NT;
+      cp_async4(q, wk_p + k * HW, true);
+      cp_async4(q + NT, gl_p + k * HW, true);
+    }
+    cp_async_commit();
+  };
+  auto start = [&]() {
+    for (int k = 0; k < kRtAhead; ++k) fetch(k);
+  };
+  auto tap = [&](int k, float& wgt, float& glk) {
+    cp_async_wait<kRtAhead - 1>();
+    const float* q = ring + (k % kRtRing) * 2 * NT;
+    wgt = q[0];
+    glk = q[NT];
+    fetch(k + kRtAhead);
+  };
+
+  // The slots: each interior unit's window offset in gray_nbr, and its
+  // right-hand sums.  A slot is one (label, neighbour) on every lane of
+  // the warp (a lane whose unit there is not interior has its bit clear
+  // in slot_on), so that a pass's tap loads of a slot are coalesced.
+  int off[kRtU];
+  float s_r[kRtU], s_rr[kRtU], s_lr[kRtU];
+  int n_slots = 0;                 // warp-uniform
+  uint32_t slot_on = 0u;
+  // One pass over the window for the warp's slots: each tap's weight, left
+  // value and mask read once (through the ring), each slot's sums in tap
+  // order; then each slot's NCC folded into its label's carry.  A tap off
+  // the mask weighs +0 here, so that everything it adds is an exact 0 (a
+  // sum is never -0): the sums of the taps on the mask, as the templates'.
+  auto pass = [&]() {
+    if (n_slots == 0) return;
+#pragma unroll
+    for (int u = 0; u < kRtU; ++u) s_r[u] = s_rr[u] = s_lr[u] = 0.f;
+    start();
+    int c = 0, o = 0;              // the tap's column and row * ws + column
+    for (int k = 0; k < T; ++k) {
+      float w_k, gl_k;
+      tap(k, w_k, gl_k);
+      const float wgt = all_on || tap_on(k, w_k) ? w_k : 0.f;
+      const float wlk = wgt * gl_k;
+      const float* g = gray_nbr + o;
+#pragma unroll
+      for (int u = 0; u < kRtU; ++u) {
+        if (u < n_slots && ((slot_on >> u) & 1u)) {
+          const float wr = wgt * __ldg(g + off[u]);
+          s_r[u] = s_r[u] + wr;
+          s_rr[u] = s_rr[u] + wr * wr;
+          s_lr[u] = s_lr[u] + wlk * wr;
+        }
+      }
+      if (++c == S) {
+        c = 0;
+        o += ws - S + 1;
+      } else {
+        ++o;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kRtU; ++u) {
+      if (u < n_slots && ((slot_on >> u) & 1u)) {
+        const float q = ncc_from_sums(inner, s_r[u], s_rr[u], s_lr[u]);
+        float* cj = carry + slot_lab[u * NT];
+        *cj = fmaxf(*cj, (q > thr) ? q : -INFINITY);
+      }
+    }
+    n_slots = 0;
+    slot_on = 0u;
+  };
+  // The border slots: each border unit's window (the clamped row and
+  // column of its top-left tap, the image's offset, the runs of rows and
+  // columns in range) and its seven sums; one (label, neighbour) on every
+  // lane of the warp, as the slots.  A tap is valid iff its row and column
+  // are in range and its mask bit is set.  Float addition rounds
+  // monotonically, so the rows in range are one run [r0, r1) and the
+  // columns [c0, c1), found once a unit.
+  int b_iy0[kRtB], b_ix0[kRtB], b_img[kRtB], b_rows[kRtB], b_cols[kRtB];
+  int n_bslots = 0;                // warp-uniform
+  uint32_t bslot_on = 0u;
+  uint8_t* bslot_lab = slot_lab + kRtU * NT;
+  // One pass over the window for the warp's border slots: each tap's
+  // weight, left value and mask read once (through the ring); each slot's
+  // sums over its valid taps in tap order, each read at its clamped
+  // index; then each slot's NCC folded into its label's carry.
+  auto pass_b = [&]() {
+    if (n_bslots == 0) return;
+    float b_w[kRtB], b_l[kRtB], b_r[kRtB], b_ll[kRtB], b_rr[kRtB],
+        b_lr[kRtB], b_n[kRtB];
+#pragma unroll
+    for (int u = 0; u < kRtB; ++u)
+      b_w[u] = b_l[u] = b_r[u] = b_ll[u] = b_rr[u] = b_lr[u] = b_n[u] = 0.f;
+    start();
+    int r = 0, c = 0;
+    // at each row: the slots whose row is in range, and the row's start
+    uint32_t row_on = 0u;
+    int rowp[kRtB];
+    for (int k = 0; k < T; ++k) {
+      float wgt, glk;
+      tap(k, wgt, glk);
+      const float wlk = wgt * glk;
+      const bool on = all_on || tap_on(k, wgt);
+      if (c == 0) {
+        row_on = 0u;
+#pragma unroll
+        for (int u = 0; u < kRtB; ++u) {
+          if (u < n_bslots && ((bslot_on >> u) & 1u)
+              && r >= (b_rows[u] & 0xffff) && r < (b_rows[u] >> 16))
+            row_on |= 1u << u;
+          rowp[u] = b_img[u] + min(max(b_iy0[u] + r, 0), hs - 1) * ws;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kRtB; ++u) {
+        if (on && ((row_on >> u) & 1u) && c >= (b_cols[u] & 0xffff)
+            && c < (b_cols[u] >> 16)) {
+          const int jx = min(max(b_ix0[u] + c, 0), ws - 1);
+          const float wr = wgt * __ldg(gray_nbr + rowp[u] + jx);
+          b_w[u] = b_w[u] + wgt;
+          b_l[u] = b_l[u] + wlk;
+          b_r[u] = b_r[u] + wr;
+          b_ll[u] = b_ll[u] + wlk * wlk;
+          b_rr[u] = b_rr[u] + wr * wr;
+          b_lr[u] = b_lr[u] + wlk * wr;
+          b_n[u] = b_n[u] + 1.f;
+        }
+      }
+      if (++c == S) {
+        c = 0;
+        ++r;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kRtB; ++u) {
+      if (u < n_bslots && ((bslot_on >> u) & 1u)) {
+        const float q = ncc_from_sums(left_terms(b_w[u], b_l[u], b_ll[u],
+                                                 b_n[u]),
+                                      b_r[u], b_rr[u], b_lr[u]);
+        float* cj = carry + bslot_lab[u * NT];
+        *cj = fmaxf(*cj, (q > thr) ? q : -INFINITY);
+      }
+    }
+    n_bslots = 0;
+    bslot_on = 0u;
+  };
+  // labels [i_first, i) are complete after the passes: they enter the
+  // list in order
+  int i_first = 0;
+  auto complete = [&](int i) {
+    pass();
+    pass_b();
+    if (active) {
+      for (int j = i_first; j < i; ++j)
+        insert(carry[j - i_first], depths[label0 + j]);
+    }
+    i_first = i;
+  };
+
+  // A unit of this lane at (x2, y2) in neighbour n: 1 (interior) with its
+  // window offset in o; 2 (border) with its window in iy0, ix0, img, rows,
+  // cols (runs [lo, hi) as lo | hi << 16); 0 when its window is wholly
+  // outside the image (the plain version's empty window), folded into
+  // carry cj at once.
+  auto unit = [&](int n, float x2, float y2, float* cj, int& o, int& iy0,
+                  int& ix0, int& img, int& rows, int& cols) {
+    if (!(x2 + frad > -1.f) || !(x2 - frad < fws) || !(y2 + frad > -1.f)
+        || !(y2 - frad < fhs)) {
+      *cj = fmaxf(*cj, (0.f > thr) ? 0.f : -INFINITY);
+      return 0;
+    }
+    const float ixf = floorf(fminf(fmaxf(x2, -1e6f), 1e6f));
+    const float iyf = floorf(fminf(fmaxf(y2, -1e6f), 1e6f));
+    if (ixf - frad >= 0.f && ixf + frad <= fws - 1.f && x2 - frad > -1.f
+        && x2 + frad < fws && iyf - frad >= 0.f && iyf + frad <= fhs - 1.f
+        && y2 - frad > -1.f && y2 + frad < fhs) {
+      o = (n * hs + (int)iyf - rad) * ws + ((int)ixf - rad);
+      return 1;
+    }
+    int r0 = 0, r1 = S, c0 = 0, c1 = S;
+    while (r0 < S && !(y2 + (float)(r0 - rad) > -1.f)) ++r0;
+    while (r1 > r0 && !(y2 + (float)(r1 - 1 - rad) < fhs)) --r1;
+    while (c0 < S && !(x2 + (float)(c0 - rad) > -1.f)) ++c0;
+    while (c1 > c0 && !(x2 + (float)(c1 - 1 - rad) < fws)) --c1;
+    iy0 = (int)iyf - rad;
+    ix0 = (int)ixf - rad;
+    img = n * hs * ws;
+    rows = r0 | r1 << 16;
+    cols = c0 | c1 << 16;
+    return 2;
+  };
+
+  // the coordinates are read one unit ahead: their load from device
+  // memory overlaps the current unit's work
+  const float* cxy = coords + p;
+  float x2_ahead = 0.f, y2_ahead = 0.f;
+  if (active) {
+    x2_ahead = cxy[0];
+    y2_ahead = cxy[HW];
+  }
+  for (int i = 0; i < n_labels; ++i) {
+    if (i - i_first == kRtCL) complete(i);
+    carry[i - i_first] = -INFINITY;
+    for (int n = 0; n < N; ++n) {
+      if (n_slots == kRtU) pass();
+      if (n_bslots == kRtB) pass_b();
+      // this lane's unit: a slot, a border slot (below), or folded at once
+      int kind = 0, o = 0, iy0 = 0, ix0 = 0, img = 0, rows = 0, cols = 0;
+      if (active) {
+        const float x2 = x2_ahead, y2 = y2_ahead;
+        if (i + 1 < n_labels || n + 1 < N) {
+          cxy += 2 * HW;
+          x2_ahead = cxy[0];
+          y2_ahead = cxy[HW];
+        }
+        // padded neighbours and invalid base samples give ncc = -inf,
+        // which never changes the carry
+        if (nbr_valid[n] && x2 > -1e6f)
+          kind = unit(n, x2, y2, carry + (i - i_first), o, iy0, ix0,
+                      img, rows, cols);
+      }
+      // a slot of the warp when any lane's unit is interior, a border
+      // slot when any lane's is a border unit
+      if (__any_sync(0xffffffffu, kind == 1)) {
+#pragma unroll
+        for (int u = 0; u < kRtU; ++u)
+          if (u == n_slots) off[u] = o;
+        if (kind == 1) slot_on |= 1u << n_slots;
+        slot_lab[n_slots * NT] = (uint8_t)(i - i_first);
+        ++n_slots;
+      }
+      if (__any_sync(0xffffffffu, kind == 2)) {
+#pragma unroll
+        for (int u = 0; u < kRtB; ++u) {
+          if (u == n_bslots) {
+            b_iy0[u] = iy0;
+            b_ix0[u] = ix0;
+            b_img[u] = img;
+            b_rows[u] = rows;
+            b_cols[u] = cols;
+          }
+        }
+        if (kind == 2) bslot_on |= 1u << n_bslots;
+        bslot_lab[n_bslots * NT] = (uint8_t)(i - i_first);
+        ++n_bslots;
+      }
     }
   }
+  complete(n_labels);
+  if (!active) return;
   if (WTA) {
     ncc_out[p] = lo;
     depth_out[p] = lo_d;
   }
 }
 
+// Lets the kernel take its dynamic shared memory, and asks for the least
+// shared-memory share of the SM that holds kRtBlocks blocks: the rest is
+// L1, which caches the neighbour images' tap rows.
 template <bool WTA>
-void launch_rt(const float* depths, const float* coords,
-               const float* gray_nbr, const float* gl, const uint8_t* lv,
-               const float* weights, const uint8_t* nbr_valid,
-               const uint8_t* center_valid, float* ncc_out, float* depth_out,
-               int H, int W, int N, int hs, int ws, int label0, int n_labels,
-               float thr, int radius, int n_list, cudaStream_t stream) {
+cudaError_t configure_rt(size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      mvs_sweep_rt_kernel<WTA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  const int share =
+      (int)((kRtBlocks * (smem + 1024) * 100 + 233471) / 233472);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(mvs_sweep_rt_kernel<WTA>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               share < 100 ? share : 100);
+  return err;
+}
+
+template <bool WTA>
+int launch_rt(const float* depths, const float* coords,
+              const float* gray_nbr, const float* gl, const uint8_t* lv,
+              const float* weights, const uint8_t* nbr_valid,
+              const uint8_t* center_valid, float* ncc_out, float* depth_out,
+              int H, int W, int N, int hs, int ws, int label0, int n_labels,
+              float thr, int radius, int n_list, cudaStream_t stream) {
+  const size_t smem = kRtSmemBytes;
+  const cudaError_t err = configure_rt<WTA>(smem);
+  if (err != cudaSuccess) return (int)err;
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY);
-  mvs_sweep_rt_kernel<WTA><<<grid, block, 0, stream>>>(
+  mvs_sweep_rt_kernel<WTA><<<grid, block, smem, stream>>>(
       depths, coords, gray_nbr, gl, lv, weights, nbr_valid, center_valid,
       ncc_out, depth_out, H, W, N, hs, ws, label0, n_labels, thr, radius,
       n_list);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -704,15 +987,14 @@ extern "C" int mvs_sweep_launch(const float* depths, const float* coords,
   if (radius < 1 || (wta ? n_topk != 1 : n_topk < 1))
     return (int)cudaErrorInvalidValue;
   if (list_k < 0) {
-    if (wta)
-      launch_rt<true>(depths, coords, gray_nbr, gl, lv, weights, nbr_valid,
-                      center_valid, ncc_out, depth_out, H, W, N, hs, ws,
-                      label0, n_labels, thr, radius, 1, stream);
-    else
-      launch_rt<false>(depths, coords, gray_nbr, gl, lv, weights, nbr_valid,
-                       center_valid, ncc_out, depth_out, H, W, N, hs, ws,
-                       label0, n_labels, thr, radius, n_topk, stream);
-    return (int)cudaGetLastError();
+    return wta ? launch_rt<true>(depths, coords, gray_nbr, gl, lv, weights,
+                                 nbr_valid, center_valid, ncc_out, depth_out,
+                                 H, W, N, hs, ws, label0, n_labels, thr,
+                                 radius, 1, stream)
+               : launch_rt<false>(depths, coords, gray_nbr, gl, lv, weights,
+                                  nbr_valid, center_valid, ncc_out,
+                                  depth_out, H, W, N, hs, ws, label0,
+                                  n_labels, thr, radius, n_topk, stream);
   }
   // the templates' neighbour mask is one 32-bit word
   if (N > 32 || (list_k == 1) != (wta != 0))
@@ -734,14 +1016,25 @@ extern "C" int mvs_sweep_launch(const float* depths, const float* coords,
   return (int)cudaGetLastError();
 }
 
-// The blocks of the run-time instance (WTA or lists) resident on one SM,
-// as the runtime computes them for its threads; 0 on an error.
+// The blocks of the run-time instance (WTA, or lists) resident on one SM,
+// as the runtime computes them for its threads and dynamic shared memory;
+// 0 on an error.
 extern "C" int mvs_sweep_rt_blocks_per_sm(int wta) {
+  const size_t smem = kRtSmemBytes;
   int n = 0;
   const cudaError_t err =
-      wta ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &n, mvs_sweep_rt_kernel<true>, kBlockX * kBlockY, 0)
-          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &n, mvs_sweep_rt_kernel<false>, kBlockX * kBlockY, 0);
+      wta ? (configure_rt<true>(smem) == cudaSuccess
+                 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       &n, mvs_sweep_rt_kernel<true>, kBlockX * kBlockY, smem)
+                 : cudaErrorInvalidValue)
+          : (configure_rt<false>(smem) == cudaSuccess
+                 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       &n, mvs_sweep_rt_kernel<false>, kBlockX * kBlockY,
+                       smem)
+                 : cudaErrorInvalidValue);
   return err == cudaSuccess ? n : 0;
 }
+
+// The dynamic shared memory a block of the run-time instance takes (WTA or
+// lists), in bytes.
+extern "C" int mvs_sweep_rt_smem_bytes() { return (int)kRtSmemBytes; }
