@@ -16,8 +16,9 @@ Phases; any failure raises, and the script exits non-zero:
    list length or neighbour count); print each kernel instance's
    registers, spills, stack frame and static shared memory from ptxas,
    kernel 1's and kernel 4's dynamic shared memory and resident blocks an
-   SM per radius (r >= 8: the run-time instances) and those of kernel 2's
-   run-time instance;
+   SM per radius (r >= 8: the run-time instances; kernel 1's the path and
+   warps a block each radius takes, held to ops/cuda_weights.py's mirror
+   of the rule) and those of kernel 2's run-time instance;
 3. kernel 1 (geodesic weights) against its plain PyTorch version at
    384x512, radius 2 (the MVS paths) and radius 5 (the two-view paths),
    and on a ragged 61x83 stress image with a holed validity plane, max
@@ -80,7 +81,9 @@ Phases; any failure raises, and the script exits non-zero:
     ValueError and launches nothing (nothing else is refused); kernel 1
     at radii 1, 3, 4, 6, 7 against its plain version on the main path's
     image (384x512, timed there) and the stress image, within 2e-5, and
-    at radii 8, 10, 17, 24 (the run-time instance) on the stress image;
+    at radii 8, 10, 17, 24 (the run-time instance) and 31, 32 (the last
+    radius of its shared-memory path and the first of its device-memory
+    path) on the stress image;
     kernel 2 at radii 1-7, WTA and top_k 1, 2, 9, 16, bit-equal on the
     ragged stress input at that radius (timed there), and its run-time
     instance bit-equal there: top_k 17, 32, 64 at radii 1-7, WTA and
@@ -184,7 +187,8 @@ Phases; any failure raises, and the script exits non-zero:
     gated as in phase 7, each path launching what its r <= 7 path
     launched; coverage and wall seconds beside the r <= 7 paths'.  Then
     each run-time instance against its plain version on the paths'
-    full-width inputs, timed there: kernel 1 on view 0; kernel 2 on view
+    full-width inputs, timed there: kernel 1 on view 0 (its row with its
+    registers, spills, shared memory and blocks an SM); kernel 2 on view
     0 over all 100 labels (the lists of 32 fill and evict there); kernel
     4 on view 0 over a slab of 12 labels around the plane's depth (the
     plain version takes seconds a label at r = 17), with its device time
@@ -1573,6 +1577,9 @@ RT_COST_LABELS, RT_SWEEP_LABELS = 21, 140
 # a radius whose halo does not fit a block's shared memory (r >= 29):
 # kernel 4's run-time instance takes its unstaged path there
 RT_COST_UNSTAGED_RADIUS = 30
+# kernel 1's run-time instance keeps the window state in shared memory up
+# to r = 31 and in device memory from r = 32: the radii either side
+RT_WEIGHTS_SWITCH_RADII = (31, 32)
 RADII = TEMPLATE_RADII + RT_RADII
 SWEEP_TOPKS = TEMPLATE_TOPKS + RT_TOPKS
 
@@ -1617,6 +1624,58 @@ def check_refused(device):
             raise AssertionError(f"{name} launched a kernel")
 
 
+def weights_resources(radius):
+    """Kernel 1 at ``radius`` as the library launches it: its sweep
+    kernel's name, registers and spill bytes (ptxas), dynamic shared memory
+    a block, blocks an SM (the runtime's occupancy) and, for the run-time
+    instance, the warps a block (0: its device-memory path) and the lanes
+    a pixel."""
+    from stereoreconstruction_tpu_torch.ops import cuda_build, cuda_weights
+
+    lib = cuda_build.library("geodesic_weights")
+    rt = int(cuda_weights.runtime_instance(radius))
+    kernel = cuda_weights.instance_for(radius)
+    ptx = [k for k in ptxas_summary(cuda_build.build_logs["geodesic_weights"])
+           if k["kernel"] == kernel]
+    return dict(kernel=kernel, registers=ptx[0]["registers"] if ptx else None,
+                spills=ptx[0]["spill_stores"] if ptx else None,
+                smem=lib.geodesic_weights_smem_bytes(radius, rt),
+                blocks=lib.geodesic_weights_blocks_per_sm(radius, rt),
+                warps=lib.geodesic_weights_rt_warps(radius) if rt else None,
+                lanes=lib.geodesic_weights_rt_lanes(radius) if rt else None)
+
+
+def check_weights_paths():
+    """Print kernel 1's instance and resources at each gated radius, and
+    hold the path, the lanes a pixel and the warps a block that the C
+    entry point takes at each run-time radius (its byte count) to
+    ops/cuda_weights.py's mirror, which names the instance (instance_for)
+    and which the profiler's timings look up."""
+    from stereoreconstruction_tpu_torch.ops import cuda_weights
+
+    parts = []
+    for r in RADII + RT_WEIGHTS_SWITCH_RADII:
+        res = weights_resources(r)
+        parts.append(f"r={r} {res['kernel']} {res['smem']} B "
+                     f"{res['blocks']}" + (
+                         f" ({res['warps']} warps, {res['lanes']} lanes)"
+                         if res["warps"] else ""))
+        if res["warps"] is None:
+            continue
+        lanes, warps = cuda_weights.rt_config(r)
+        want = (lanes, warps,
+                cuda_weights.rt_smem_bytes(r, warps, lanes) if warps else 0)
+        got = (res["lanes"], res["warps"], res["smem"])
+        if got != want:
+            raise AssertionError(
+                f"geodesic weights r={r}: the library takes (lanes, warps, "
+                f"smem) {got}; cuda_weights.rt_config says {want}")
+        if res["blocks"] < 1:
+            raise AssertionError(f"geodesic weights r={r}: no block fits")
+    print("  geodesic_weights instance, dynamic smem a block and blocks an "
+          "SM (runtime occupancy): " + ", ".join(parts))
+
+
 def instance_row(name, counter, source, replaces, err, ms, plain_ms,
                  n_bytes, n_ops, instance, paths=()):
     """A kernel-table row of an instance timed on its gate's inputs; its
@@ -1636,8 +1695,9 @@ def check_weights_radii(device, rgb, reps):
     """Kernel 1 at every compile-time radius but the main paths' (2, 5),
     against its plain version on the main path's image (384x512, where each
     is timed) and the stress image: max |diff| <= 2e-5; and the run-time
-    instance at RT_RADII on the stress image (timed at full width in phase
-    24).  Returns the compile-time instances' rows."""
+    instance at RT_RADII and RT_WEIGHTS_SWITCH_RADII on the stress image
+    (timed at full width in phase 24).  Returns the compile-time
+    instances' rows."""
     from stereoreconstruction_tpu_torch.ops.cuda_weights import (
         cuda_geodesic_weights, instance_for)
     from stereoreconstruction_tpu_torch.ops.weights import geodesic_weights
@@ -1645,7 +1705,7 @@ def check_weights_radii(device, rgb, reps):
     s_rgb, s_valid = weights_stress_inputs(device)
     h, w = rgb.shape[:2]
     rows = []
-    for r in RADII:
+    for r in RADII + RT_WEIGHTS_SWITCH_RADII:
         if r in (2, 5):
             continue
         s_err = float((cuda_geodesic_weights(s_rgb, r, valid=s_valid)
@@ -1769,15 +1829,18 @@ def check_sweep_radii(device, reps):
         for mode, k in modes:
             if r == 2 and (mode == "wta" or k == 9):
                 continue
+            # the plain version timed on the call that checks it
             if mode == "wta":
                 def call():
                     return cuda_mvs_wta(**kw, **s_in)
-                want = mvs_wta_plain(**kw, **s_in)
+                want, plain_ms = timed_call(
+                    lambda: mvs_wta_plain(**kw, **s_in), device)
                 kname, inst = f"mvs_sweep_kernel<{r}, 1>", f"r={r}, WTA"
             else:
                 def call(k=k):
                     return cuda_mvs_topk(top_k=k, **kw, **no_c)
-                want = mvs_topk_plain(top_k=k, **kw, **no_c)
+                want, plain_ms = timed_call(
+                    lambda: mvs_topk_plain(top_k=k, **kw, **no_c), device)
                 kname = f"mvs_sweep_kernel<{r}, 0>"
                 inst = f"r={r}, top_k={k}"
             n_k, d_k, oob = call()
@@ -1790,9 +1853,6 @@ def check_sweep_radii(device, reps):
                 raise AssertionError(f"sweep {inst} disagrees with its plain "
                                      "version")
             ms, _ = kernel_ms(lambda: call()[:2], reps, device, kname)
-            plain = (lambda: mvs_wta_plain(**kw, **s_in)) if mode == "wta" \
-                else (lambda k=k: mvs_topk_plain(top_k=k, **kw, **no_c))
-            plain_ms = cuda_ms(plain, 3, device)
             counts = sweep_counts(s_in, s_nv, r, every_pixel=mode == "topk")
             n_bytes = sum(t.numel() * t.element_size() for t in s_in.values()
                           if isinstance(t, torch.Tensor)) + s_nv.numel() \
@@ -1852,7 +1912,7 @@ def check_cost_radii(device, reps):
     from stereoreconstruction_tpu_torch.config import TwoViewConfig
     from stereoreconstruction_tpu_torch.ops.cuda_cost_wta import (
         cost_volume_plain, cost_wta_plain, cuda_cost_volume, cuda_cost_wta,
-        instance_for)
+        instance_for, wta_scan)
 
     rows = []
     for r in RADII + (RT_COST_UNSTAGED_RADIUS,):
@@ -1860,40 +1920,51 @@ def check_cost_radii(device, reps):
             continue
         cfg = TwoViewConfig(window_radius=r)
         args = cost_stress_inputs(device, r)
+        kw = dict(radius=r, max_color_diff=cfg.max_color_diff,
+                  bad_ret=cfg.bad_ret)
         if r not in TEMPLATE_RADII:
             print(f"cost r={r}: {instance_for(r)}, "
                   f"{instance_for(r, volume=True)}")
-            # and two label chunks of the run-time instance and a partial
-            longer = cost_stress_inputs(device, r, n_lab=RT_COST_LABELS)
-            check_cost_inputs(cfg, f"cost r={r}", cuda_cost_wta,
-                              cost_wta_plain, [("stress", args),
-                                               ("stress", longer)])
-            check_cost_inputs(cfg, f"cost volume r={r}", cuda_cost_volume,
-                              cost_volume_plain, [("stress", args[1:]),
-                                                  ("stress", longer[1:])])
+            # and two label chunks of the run-time instance and a partial;
+            # the WTA's plain version is the WTA scan over the plain volume
+            # (cost_wta_plain's planes), so each case's planes are made once
+            for case in (args, cost_stress_inputs(device, r,
+                                                  n_lab=RT_COST_LABELS)):
+                vol = cost_volume_plain(*case[1:], **kw)
+                check_cost_inputs(
+                    cfg, f"cost r={r}", cuda_cost_wta,
+                    lambda *a, **k: wta_scan(lambda d: (vol[d], a[0][d]),
+                                             a[0], vol.shape[1:], vol.dtype),
+                    [("stress", case)])
+                check_cost_inputs(cfg, f"cost volume r={r}",
+                                  cuda_cost_volume, lambda *a, **k: vol,
+                                  [("stress", case[1:])])
             continue
-        kw = dict(radius=r, max_color_diff=cfg.max_color_diff,
-                  bad_ret=cfg.bad_ret)
-        check_cost_inputs(cfg, f"cost r={r}", cuda_cost_wta, cost_wta_plain,
+        # each plain version timed on the call that checks it
+        plain_ms = {}
+
+        def timed_plain(plain, volume):
+            def run(*a, **k):
+                out, plain_ms[volume] = timed_call(lambda: plain(*a, **k),
+                                                   device)
+                return out
+            return run
+        check_cost_inputs(cfg, f"cost r={r}", cuda_cost_wta,
+                          timed_plain(cost_wta_plain, False),
                           [("stress", args)])
         check_cost_inputs(cfg, f"cost volume r={r}", cuda_cost_volume,
-                          cost_volume_plain, [("stress", args[1:])])
+                          timed_plain(cost_volume_plain, True),
+                          [("stress", args[1:])])
         counts = cost_counts(args[4], args[5], args[2], r)
         in_bytes = sum(t.numel() * t.element_size() for t in args)
         for volume in (False, True):
             if volume:
                 def call():
                     return cuda_cost_volume(*args[1:], **kw)
-
-                def plain():
-                    return cost_volume_plain(*args[1:], **kw)
                 out_bytes = args[1].numel() * 4
             else:
                 def call():
                     return cuda_cost_wta(*args, **kw)
-
-                def plain():
-                    return cost_wta_plain(*args, **kw)
                 out_bytes = 3 * args[3].numel() * 4
             ms, _ = kernel_ms(call, reps, device,
                               f"cost_wta_kernel<{r}, "
@@ -1901,7 +1972,7 @@ def check_cost_radii(device, reps):
             rows.append(instance_row(
                 f"cost_{'volume' if volume else 'wta'}_r{r}",
                 "cost_volume" if volume else "cost_wta", "cost_wta.cu",
-                "pallas_ncc.py:158", 0.0, ms, cuda_ms(plain, 3, device),
+                "pallas_ncc.py:158", 0.0, ms, plain_ms[volume],
                 in_bytes + out_bytes, cost_ops(counts, 30),
                 f"r={r}, {'volume' if volume else 'WTA'}, stress 61x83"))
     return rows
@@ -3553,9 +3624,12 @@ WIDE_MVS_RADIUS, WIDE_TOPK = 8, 32
 WIDE_CROP_LABELS = 20
 # The first run-time instances' figures (PERF.md section 6, runs Z3 and
 # Z5, NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's: their
-# device ms (kernel 4 over all 100 labels) and phase 24's path seconds
+# device ms (kernel 4 over all 100 labels) and phase 24's path seconds;
+# kernel 1's device-memory instance at r = 8 and 17 (run AA17, the same
+# card)
 EARLIER_MS = {"mvs_sweep_r8_wta": 82.2661, "mvs_sweep_r8_top32": 89.4254,
-              "cost_wta_r17": 51.08, "cost_volume_r17": 48.78}
+              "cost_wta_r17": 51.08, "cost_volume_r17": 48.78,
+              "geodesic_weights_r8": 2.0753, "geodesic_weights_r17": 10.9701}
 EARLIER_WALL = {"twoview_wide": 0.245, "twoview_wide_mrf": 1.134,
                 "mvs_wide": 1.912, "mvs_wide_mrf": 2.327}
 
@@ -3570,7 +3644,7 @@ def wide_weights_row(device, rgb, radius, paths, reps):
     """Kernel 1's run-time instance at ``radius`` on a full view: within
     2e-5 of its plain version (timed on that call); its row."""
     from stereoreconstruction_tpu_torch.ops.cuda_weights import (
-        cuda_geodesic_weights, instance_for)
+        cuda_geodesic_weights, instance_for, launched_kernels)
     from stereoreconstruction_tpu_torch.ops.weights import geodesic_weights
 
     h, w = rgb.shape[:2]
@@ -3583,16 +3657,23 @@ def wide_weights_row(device, rgb, radius, paths, reps):
           f"|kernel - plain| {err:.3e}")
     if not err <= 2e-5:
         raise AssertionError(f"geodesic weights r={radius} disagree")
-    ms, _ = kernel_ms(lambda: cuda_geodesic_weights(rgb, radius), reps,
-                      device, ("geodesic_edges_kernel",
-                               "geodesic_weights_rt_kernel"))
+    ms, call_ms = kernel_ms(lambda: cuda_geodesic_weights(rgb, radius),
+                            reps, device, launched_kernels(radius))
+    res = weights_resources(radius)
+    name = f"geodesic_weights_r{radius}"
+    print(f"  {name}: call {call_ms:.4f} ms (earlier instance: "
+          f"{EARLIER_MS[name]} ms)")
     size = 2 * radius + 1
     return instance_row(
-        f"geodesic_weights_r{radius}", "geodesic_weights",
-        "geodesic_weights.cu", "pallas_weights.py:166", err, ms, plain_ms,
+        name, "geodesic_weights", "geodesic_weights.cu",
+        "pallas_weights.py:166", err, ms, plain_ms,
         rgb.numel() * 4 + size * size * h * w * 4,
         geodesic_ops(radius) * h * w,
-        f"r={radius}, {h}x{w}, run-time instance", paths)
+        f"r={radius}, {h}x{w}, run-time instance, {res['kernel']} "
+        f"({res['warps']} warps a block, {res['lanes']} lanes a pixel): "
+        f"{res['registers']} registers, "
+        f"{res['spills']} B spilled, {res['smem']} B smem, {res['blocks']} "
+        f"blocks an SM", paths)
 
 
 def wide_sweep_rows(device, rigw, reps):
@@ -3874,14 +3955,8 @@ def main():
                   f"{k['spill_loads']} B spill loads, {k['stack']} B stack "
                   f"frame, {k['smem']} B static smem")
     # r >= 8: the run-time instances
-    from stereoreconstruction_tpu_torch.ops import cuda_cost_wta, cuda_weights
-    lib = cuda_build.library("geodesic_weights")
-    rts = {r: int(cuda_weights.runtime_instance(r)) for r in RADII}
-    print("  geodesic_weights dynamic smem a block and blocks an SM (runtime "
-          "occupancy): " + ", ".join(
-              f"r={r} {lib.geodesic_weights_smem_bytes(r, rt)} B "
-              f"{lib.geodesic_weights_blocks_per_sm(r, rt)}"
-              for r, rt in rts.items()))
+    from stereoreconstruction_tpu_torch.ops import cuda_cost_wta
+    check_weights_paths()
     lib = cuda_build.library("mvs_sweep")
     print(f"  mvs_sweep run-time instance dynamic smem a block "
           f"{lib.mvs_sweep_rt_smem_bytes()} B, blocks an SM (runtime "

@@ -10,7 +10,8 @@ Kernels 1 (``csrc/geodesic_weights.cu``), 2 (``csrc/mvs_sweep.cu``) and 4
 (``csrc/cost_wta.cu``) at the main paths' radii, and the run-time
 instances of kernels 2 and 4 (``mvs_sweep_rt``, ``cost_wta_rt``: the same
 sources, timed on the wide-window cell's view 0 at r = 8 and 17 over all
-labels), or those named with ``--kernels``.  Each variant
+labels) and of kernel 1 (``geodesic_weights_rt``: view 0 at r = 8 and 17),
+or those named with ``--kernels``.  Each variant
 is the shipped source with a text substitution that undoes one design
 choice (an ablation), or, with ``--baseline``, the same source from
 another tree's ``csrc`` directory (for example an earlier commit unpacked
@@ -271,13 +272,56 @@ COST_RT_VARIANTS = [
      [("      if (!((full_groups >> l0) & 1u) || !centre) continue;",
        "      if (true) continue;")], True),
 ]
+WEIGHTS_RT_WARPS = "constexpr int kRtMaxWarps = 4;"
+WEIGHTS_RT_VARIANTS = [
+    ("shipped", [], False),
+    ("4 lanes a pixel at every radius",
+     [("constexpr int kRtTwoLanes = 1;", "constexpr int kRtTwoLanes = 0;")],
+     False),
+    ("2 warps a block at most (16 pixels)",
+     [(WEIGHTS_RT_WARPS, WEIGHTS_RT_WARPS.replace("4", "2"))], False),
+    ("a warp a block (8 pixels)",
+     [(WEIGHTS_RT_WARPS, WEIGHTS_RT_WARPS.replace("4", "1"))], False),
+    ("no __syncwarp a step (timing only: a race)",
+     [("      update();\n      __syncwarp();\n", "      update();\n")], True),
+    ("no sweeps (timing only: edges, tile copy, output)",
+     [("  for (int it = 0; it < iters; ++it) {\n    sweep_lanes<L, -1>",
+       "  for (int it = 0; it < 0; ++it) {\n    sweep_lanes<L, -1>")], True),
+    ("edges not loaded (timing only)",
+     [("    o.fa = DY < 0 ? pf[0] : pf[1];\n    o.fb = DY < 0 ? pf[1] : pf[0];\n",
+       "    o.fa = make_float4(1.f, 2.f, 3.f, 4.f);\n"
+       "    o.fb = make_float4(4.f, 3.f, 2.f, 1.f);\n"),
+      ("    o.er0 = DY < 0 ? pr[0] : 0.f;\n    o.er1 = DY < 0 ? pr[1] : 0.f;\n",
+       "    o.er0 = 5.f;\n    o.er1 = 6.f;\n")], True),
+    ("state cells not loaded (timing only)",
+     [("    o.u = *pu;\n    o.pn = hp && k < Q ? *pp : inf2;\n",
+       "    o.u = make_float2(4096.f, 4096.f);\n"
+       "    o.pn = hp && k < Q ? make_float2(9.f, 9.f) : inf2;\n")], True),
+    ("no output (timing only)",
+     [("  if (x >= W) return;\n", "  if (x >= 0) return;\n")],
+     True),
+    ("weights by a division, as the plain version",
+     [("expf(d.x * scale);", "expf(-d.x / sigma);"),
+      ("expf(d.y * scale);", "expf(-d.y / sigma);")], False),
+    ("no edge tile copied (timing only)",
+     [("      e = make_float4(q[0], q[plane], q[2 * plane], q[3 * plane]);",
+       "      e = make_float4(1.f, (float)tx, (float)ty, 2.f);")], True),
+    ("the step loop unrolled 4 times",
+     [("#pragma unroll 2\n    for (; step < end; ++step) {",
+       "#pragma unroll 4\n    for (; step < end; ++step) {")], False),
+    ("the step loop not unrolled",
+     [("#pragma unroll 2\n    for (; step < end; ++step) {",
+       "#pragma unroll 1\n    for (; step < end; ++step) {")], False),
+]
 VARIANTS = {"mvs_sweep": SWEEP_VARIANTS,
             "geodesic_weights": WEIGHTS_VARIANTS,
             "cost_wta": COST_VARIANTS,
             "mvs_sweep_rt": SWEEP_RT_VARIANTS,
-            "cost_wta_rt": COST_RT_VARIANTS}
+            "cost_wta_rt": COST_RT_VARIANTS,
+            "geodesic_weights_rt": WEIGHTS_RT_VARIANTS}
 # the source (and library) of each kind
-SOURCE = {"mvs_sweep_rt": "mvs_sweep", "cost_wta_rt": "cost_wta"}
+SOURCE = {"mvs_sweep_rt": "mvs_sweep", "cost_wta_rt": "cost_wta",
+          "geodesic_weights_rt": "geodesic_weights"}
 
 
 def variant_sources(kernel, variants, baseline, tmp):
@@ -392,6 +436,61 @@ def weights_cases(dev, rig):
         return {f"r={r}": cs.kernel_ms(
             lambda: cuda_geodesic_weights(rgb, r), 10, dev,
             f"geodesic_weights_kernel<{r}>")[0] for r, _, _ in cases}
+
+    return check, times
+
+
+def launched(call, dev):
+    """The CUDA kernels one call of ``call`` launches, as the profiler
+    names them (a variant or a baseline may launch others than the shipped
+    source)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize(dev)
+    return tuple(sorted({e.key for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA}))
+
+
+def weights_rt_cases(dev, rig):
+    """(check, times) of the weights' run-time instance at r = 8 and 17:
+    within 2e-5 of the plain version on the wide-window cell's view 0
+    (384x512) and on the stress image, and at the radii either side of its
+    shared/device-memory switch on the stress image; timed on view 0: the
+    device time of the kernels the call launches, and the call's event
+    time.  A variant may move the switch: the check holds whatever path
+    the library takes."""
+    from stereoreconstruction_tpu_torch.ops.cuda_weights import (
+        cuda_geodesic_weights)
+    from stereoreconstruction_tpu_torch.ops.weights import geodesic_weights
+
+    rgb = torch.as_tensor(rig[2][0], device=dev)
+    w_rgb, w_valid = cs.weights_stress_inputs(dev)
+    radii = (cs.WIDE_MVS_RADIUS, cs.WIDE_TWOVIEW_RADIUS)
+    cases = [(rgb, r, None) for r in radii] + [
+        (w_rgb, r, w_valid) for r in radii + cs.RT_WEIGHTS_SWITCH_RADII]
+    wanted = [geodesic_weights(x, r, exact=False, pixel_valid=v)
+              for x, r, v in cases]
+
+    def check():
+        err = 0.0
+        for (x, r, v), want in zip(cases, wanted):
+            err = max(err, float((cuda_geodesic_weights(x, r, valid=v)
+                                  - want).abs().max()))
+        return err <= 2e-5, {"max_abs_err": err}
+
+    def times():
+        out = {}
+        for r in radii:
+            def call(r=r):
+                return cuda_geodesic_weights(rgb, r)
+            ms, call_ms = cs.kernel_ms(call, 5, dev,
+                                       launched(call, dev))
+            out[f"r={r}"], out[f"r={r} call"] = ms, call_ms
+        return out
 
     return check, times
 
@@ -579,7 +678,8 @@ def main():
                  "geodesic_weights": lambda: weights_cases(dev, rig),
                  "cost_wta": lambda: cost_cases(dev, rig),
                  "mvs_sweep_rt": lambda: sweep_rt_cases(dev, rig, cfg),
-                 "cost_wta_rt": lambda: cost_rt_cases(dev, rig)}
+                 "cost_wta_rt": lambda: cost_rt_cases(dev, rig),
+                 "geodesic_weights_rt": lambda: weights_rt_cases(dev, rig)}
 
         results, failed = [], []
         for kind, variants in kinds.items():
@@ -602,6 +702,10 @@ def main():
                 elif kind == "mvs_sweep_rt":
                     row["blocks_per_sm"] = [lib.mvs_sweep_rt_blocks_per_sm(w)
                                             for w in (1, 0)]
+                elif kind == "geodesic_weights_rt":
+                    row["blocks_per_sm"] = [lib.geodesic_weights_blocks_per_sm(
+                        r, 1) for r in (cs.WIDE_MVS_RADIUS,
+                                        cs.WIDE_TWOVIEW_RADIUS)]
                 row["ms"] = times()
                 ok = timing_only or row["bit_equal"]
                 if not ok:
@@ -613,8 +717,10 @@ def main():
                                     for k, v in row["ms"].items())
                 verdict = "timing only" if timing_only else f"agrees {ok}"
                 if "blocks_per_sm" in row:
-                    verdict += (f"; blocks an SM (WTA, other mode) "
-                                f"{row['blocks_per_sm']}")
+                    verdict += (f"; blocks an SM ("
+                                + ("r = 8, 17" if kind == "geodesic_weights_rt"
+                                   else "WTA, other mode")
+                                + f") {row['blocks_per_sm']}")
                 print(f"{kind} | {name}: {times_s}; {verdict}; {regs}",
                       flush=True)
                 results.append(row)

@@ -20,6 +20,12 @@ from .weights import geodesic_weights
 # radius >= 1 takes its run-time-radius instance.  The C entry points launch
 # the instance the wrapper names (runtime_instance is the one rule).
 TEMPLATE_RADII = tuple(range(1, 8))
+# The run-time instance's shared-memory path (csrc: kRtTwoLanes,
+# kRtMaxWarps, kRtGuard, kRtMaxSmem): whether a radius may take 2 lanes a
+# pixel, the warps a block at most, the guard floats around its buffers,
+# and a block's shared memory on sm_90.  The C entry point picks the path,
+# the lanes and the warps by the same byte count (rt_config).
+RT_TWO_LANES, RT_MAX_WARPS, RT_GUARD, RT_MAX_SMEM = True, 4, 256, 232448
 
 
 def runtime_instance(radius: int) -> bool:
@@ -30,14 +36,62 @@ def runtime_instance(radius: int) -> bool:
     return radius not in TEMPLATE_RADII
 
 
+def rt_smem_bytes(radius: int, warps: int, lanes: int = 4) -> int:
+    """Dynamic shared memory (bytes) of a block of ``warps`` warps of the
+    run-time instance's shared-memory path with ``lanes`` lanes a pixel: a
+    guard, each warp's window states ([rows a lane][r + 1 cell pairs][32
+    lanes][2] floats: S cells and a pad a row), the block's edge tile (S
+    rows of 32 / lanes x warps + 2r float4s), the right edges again (S rows
+    of EWr floats, EWr the least width >= the tile's with EWr - 2 x skew =
+    32 / lanes mod 32, skew = ceil((r + 2) / lanes) steps), a guard.  The
+    mirror of csrc/geodesic_weights.cu rt_layout."""
+    size = 2 * radius + 1
+    pairs = radius + 1
+    rows = -(-size // lanes)                     # rows a lane
+    skew = -(-(pairs + 1) // lanes)
+    pixels = 32 // lanes
+    ew = warps * pixels + 2 * radius
+    ewr = ew + (2 * skew + pixels - ew) % 32
+    state = warps * rows * pairs * 64
+    floats = RT_GUARD + state + 4 * size * ew + size * ewr + RT_GUARD
+    return floats * 4
+
+
+def rt_config(radius: int) -> tuple:
+    """(lanes a pixel, warps a block) of the run-time instance's
+    shared-memory path at ``radius``: 2 lanes and RT_MAX_WARPS where such a
+    block takes at most half a block's shared memory (two blocks an SM),
+    else 4 lanes and the most of 4, 2, 1 warps whose bytes fit; warps 0
+    where none fits and it takes its device-memory path."""
+    if RT_TWO_LANES and (rt_smem_bytes(radius, RT_MAX_WARPS, 2)
+                         <= RT_MAX_SMEM // 2):
+        return 2, RT_MAX_WARPS
+    w = RT_MAX_WARPS
+    while w and rt_smem_bytes(radius, w) > RT_MAX_SMEM:
+        w //= 2
+    return 4, w
+
+
+def launched_kernels(radius: int) -> tuple:
+    """The kernels a CUDA call at ``radius`` launches, in order, as the
+    profiler names them: the compile-time instance; or the run-time
+    instance's ``geodesic_edges_kernel`` (it writes the padded edge planes)
+    and the sweep of its shared-memory path, or of its device-memory path.
+    Raises ValueError for a radius below 1."""
+    if not runtime_instance(radius):
+        return (f"geodesic_weights_kernel<{radius}>",)
+    lanes, warps = rt_config(radius)
+    if warps:
+        return ("geodesic_edges_kernel",
+                f"geodesic_weights_rt_smem_kernel<{lanes}>")
+    return ("geodesic_edges_kernel", "geodesic_weights_rt_kernel")
+
+
 def instance_for(radius: int) -> str:
-    """The kernel instance a CUDA call at ``radius`` launches, as the
-    profiler names it (the run-time instance's sweep follows
-    ``geodesic_edges_kernel``, which writes its edge planes).  Raises
-    ValueError for a radius below 1."""
-    if runtime_instance(radius):
-        return "geodesic_weights_rt_kernel"
-    return f"geodesic_weights_kernel<{radius}>"
+    """The kernel instance (its sweep kernel) a CUDA call at ``radius``
+    launches, as the profiler names it: it names the path a run-time radius
+    takes.  Raises ValueError for a radius below 1."""
+    return launched_kernels(radius)[-1]
 
 
 def cuda_geodesic_weights(rgb, radius: int, sigma: float = 50.0,

@@ -21,6 +21,7 @@ import kernel_variants  # noqa: E402
     ("cost_wta", kernel_variants.COST_VARIANTS),
     ("mvs_sweep_rt", kernel_variants.SWEEP_RT_VARIANTS),
     ("cost_wta_rt", kernel_variants.COST_RT_VARIANTS),
+    ("geodesic_weights_rt", kernel_variants.WEIGHTS_RT_VARIANTS),
 ])
 def test_every_variant_applies_to_the_shipped_source(tmp_path, kernel,
                                                      variants):

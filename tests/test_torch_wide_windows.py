@@ -290,9 +290,11 @@ def test_instances_by_radius(radius):
     template = radius <= 7
     assert cuda_weights.runtime_instance(radius) is not template
     assert cuda_cost_wta.runtime_instance(radius) is not template
+    # r = 8 and 17 take the run-time instance's shared-memory path, with
+    # 2 and 4 lanes a pixel
     assert cuda_weights.instance_for(radius) == (
         f"geodesic_weights_kernel<{radius}>" if template
-        else "geodesic_weights_rt_kernel")
+        else f"geodesic_weights_rt_smem_kernel<{2 if radius == 8 else 4}>")
     for volume, flag in ((False, "false"), (True, "true")):
         assert cuda_cost_wta.instance_for(radius, volume) == (
             f"cost_wta_kernel<{radius}, {flag}>" if template
