@@ -38,19 +38,27 @@ Phases; any failure raises, and the script exits non-zero:
    100 labels, radius 2, <= 3 neighbours, cross-check 0.5.  Kernels 1, 2
    (WTA) and 5 (sampling) must launch; depths are held against the
    analytic depth.  The sampling kernel's first call is recorded for
-   phase 15;
+   phase 15.  mvs_depth_maps runs its batched form (the JAX package's
+   production path: its views one at a time, as the JAX scan runs them);
+   the same call through its per-view loop (a DepthCheckpoint in an
+   empty directory) must give the same maps bit for bit, NaN equal to
+   NaN; both forms' seconds and peak memory are printed;
 6. a breakdown of a second MVS run: each stage of mvs_depth_maps and the
    PLY on the host clock, and the device's busy time by kernel from
-   torch.profiler;
+   torch.profiler, in two sessions, the batched form and the per-view
+   loop; each session's kernel launches and its coordinate stage's device
+   seconds are printed;
 7. the MVS MRF main path (``cli stereo --mrf``): mvs_depth_maps with
    use_mrf (top-K, TRW-S, labels_to_depth, cross-check) on the same rig.
    Kernels 1, 2 (top-K) and 5 must launch; each view's last energy is at
    most its energy after the first iteration and, where TRW-S ran more
    than one iteration, at most its energy at the start (a view the stop
    rule ends after one iteration keeps that iteration's labels, as the
-   JAX package does); depths are held against the analytic depth;
+   JAX package does); depths are held against the analytic depth; the
+   per-view loop gated bit-equal to the batched form, as in phase 5;
 8. a breakdown of a second MVS MRF run, its stages timed by shims around
-   the functions stereo/multiview.py calls;
+   the functions stereo/multiview.py calls, batched and per-view loop, as
+   in phase 6;
 9. kernel 3 (bilinear warp) against its plain version on view 0's two-view
    coordinate volume (384x512, 100 labels): warped values bit-equal, the
    same validity, oob_frac == 0; times;
@@ -132,6 +140,18 @@ Phases; any failure raises, and the script exits non-zero:
     against the analytic depth), the second loading every view (depths
     bit-equal, no launch of kernels 1 and 2, kernel 5 launched); each
     verb's seconds;
+21b. the refractive pipeline from images through the port's CLI, on
+    tests/test_refraction_e2e.py's fixture (4 views at 120x160 behind
+    ports tilted by 0.08 rad, n = 1.333, 6 boards of 8 x 6 inner corners
+    rendered through the ports in numpy; the project's cameras at their
+    true poses in the detector's pixel frame, with the GUI's start
+    interface: index 1.30, the principal point, distance 3.0):
+    ``detect``, ``match`` and ``refraction`` on the card.  The JAX test's
+    bounds against the truth: >= 18 boards found, > 1000
+    correspondences, chi2 below 0.35x the start's and at most 1.05x the
+    truth's, the no-refraction model's above 10x the fit's, the index
+    within 0.05, each piercing pixel within 12 px (x) and 6 px (y), each
+    distance in (1.5, 8.0); no kernel launched; each verb's seconds;
 22. the SAD two-view path and the remaining verbs:
     compute_depth_maps(cost="sad") on views 0 and 1 at the two-view cell's
     shape (kernel 1 at r = 5 and kernel 5 launched, kernels 3 and 4 not;
@@ -185,7 +205,8 @@ Phases; any failure raises, and the script exits non-zero:
     5, 7, 11 and 13: each median |depth error| within a label step of the
     analytic depth, the coverage floors of the r <= 7 paths, each MRF
     gated as in phase 7, each path launching what its r <= 7 path
-    launched; coverage and wall seconds beside the r <= 7 paths'.  Then
+    launched (the MVS paths through mvs_depth_maps's batched form);
+    coverage and wall seconds beside the r <= 7 paths'.  Then
     each run-time instance against its plain version on the paths'
     full-width inputs, timed there: kernel 1 on view 0 (its row with its
     registers, spills, shared memory and blocks an SM); kernel 2 on view
@@ -199,7 +220,7 @@ Phases; any failure raises, and the script exits non-zero:
     SAD path, phase 23's sharded paths, summed over their ranks and
     worlds, and phase 24's wide paths; the compile-time instances of
     phase 16 have rows of their own, timed on their gates' inputs, with 0
-    launches; phases 17-21 add none), then the result line {"ok": true,
+    launches; phases 17-21b add none), then the result line {"ok": true,
     "device": {...}} last.
 
 A kernel's time ("ms") is its device time from torch.profiler, the mean of
@@ -273,10 +294,11 @@ def procedural_texture(xy, seed=0, n_waves=24, amplitude=55.0):
 
 
 def converging_rig(n_cams, *, focal, h, w, baseline, target_z, refr_index,
-                   plane_dist):
+                   plane_dist, tilt=0.0):
     """Cameras on a horizontal line looking at (0, 0, target_z), each with a
-    flat refractive port at plane_dist along its optical axis.  Returns
-    dicts of K, R, t and the port (local normal, distance, index)."""
+    flat refractive port at plane_dist along its optical axis, its normal
+    tilted by ``tilt`` radians toward the local +x.  Returns dicts of K,
+    R, t and the port (local normal, distance, index)."""
     K = np.array([[focal, 0.0, w / 2.0], [0.0, focal, h / 2.0],
                   [0.0, 0.0, 1.0]])
     cams = []
@@ -288,7 +310,7 @@ def converging_rig(n_cams, *, focal, h, w, baseline, target_z, refr_index,
         x /= np.linalg.norm(x)
         R = np.stack([x, np.cross(z, x), z])
         cams.append(dict(K=K, R=R, t=-R @ center,
-                         normal=np.array([0.0, 0.0, 1.0]),
+                         normal=np.array([np.sin(tilt), 0.0, np.cos(tilt)]),
                          plane_dist=plane_dist, refr_index=refr_index))
     return cams
 
@@ -799,6 +821,10 @@ PATH_KERNELS.update({w: PATH_KERNELS[p] for w, p in WIDE_PATHS.items()})
 # each main path's wall seconds and coverage (a list for the two-view
 # paths' two views), for phase 24 to print beside its own
 PATH_STATS = {}
+# phases 5 and 7: the batched and per-view loop forms of mvs_depth_maps
+# (seconds, peak memory); phases 6 and 8: each form's profiled launches
+# and coordinate-stage device seconds
+FORM_STATS = {}
 
 
 def counted(device, path, call):
@@ -841,6 +867,51 @@ def recording(module, name, record):
     return ctx()
 
 
+def peak_counted(device, path, call):
+    """``counted`` with the device memory the call allocated at its peak
+    above what was allocated before it (bytes).  Returns (result, seconds,
+    launches, peak bytes)."""
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out, wall, launches = counted(device, path, call)
+    return (out, wall, launches,
+            torch.cuda.max_memory_allocated(device) - base)
+
+
+def loop_form(device, path, rig, cfg, batched, wall, peak):
+    """The same ``mvs_depth_maps`` call through its per-view loop (a
+    DepthCheckpoint in an empty temporary directory; it also writes each
+    view's estimate there, a host copy and a sync a view, inside its
+    seconds), gated bit-equal to the batched form's maps ``batched``, NaN
+    equal to NaN; prints both forms' host-clock seconds and peak memory
+    above the call's start.  Returns the forms' figures."""
+    from stereoreconstruction_tpu_torch.runtime.checkpoint import (
+        DepthCheckpoint)
+    from stereoreconstruction_tpu_torch.stereo.multiview import (
+        mvs_depth_maps)
+
+    cams, _, rgbs, masks = rig
+    with tempfile.TemporaryDirectory() as tmp:
+        loop, t_loop, _, peak_loop = peak_counted(
+            device, path, lambda: mvs_depth_maps(
+                rgbs, masks, cams, cfg, device=device,
+                checkpoint=DepthCheckpoint(tmp, cfg)))
+    same = np.array_equal(batched.cpu().numpy(), loop.cpu().numpy(),
+                          equal_nan=True)
+    gib = 1 << 30
+    print(f"{path} forms ({nvidia_smi_line()}): batched {wall:.3f} s, "
+          f"peak {peak / gib:.3f} GiB; per-view "
+          f"loop {t_loop:.3f} s, peak {peak_loop / gib:.3f} GiB; depth "
+          f"maps bit-equal {same}")
+    if not same:
+        raise AssertionError(f"{path}: the batched form's depth maps "
+                             "differ from the per-view loop's")
+    return dict(batched_s=round(wall, 3), loop_s=round(t_loop, 3),
+                batched_peak_gib=round(peak / gib, 3),
+                loop_peak_gib=round(peak_loop / gib, 3))
+
+
 def depth_quality(d, truth, step):
     """(coverage, median |depth error|) of a depth map against the truth:
     the share of pixels with a positive finite depth, and their error."""
@@ -870,7 +941,7 @@ def main_path(device, rig, true_depth, outdir):
 
     with recording(multiview, "cuda_sample_nearest", keep_first):
         t0 = time.perf_counter()
-        depths, t_depth, launches = counted(
+        depths, t_depth, launches, peak = peak_counted(
             device, "mvs",
             lambda: mvs_depth_maps(rgbs, masks, cams, cfg, device=device))
         pts, cols = depth_maps_to_ply(depths, rgbs, cams, cfg, device=device)
@@ -896,6 +967,8 @@ def main_path(device, rig, true_depth, outdir):
             and n_read == len(pts)
             and np.isfinite(pts).all()):
         raise AssertionError("main-path depth maps fail the analytic check")
+    FORM_STATS["mvs"] = loop_form(device, "mvs", rig, cfg, depths, t_depth,
+                                  peak)
     return launches, coverage, sampled[0]
 
 
@@ -920,7 +993,8 @@ def mvs_path(device, rig, true_depth, path):
     return launches
 
 
-def mrf_main_path(device, rig, true_depth, wta_coverage, path="mvs_mrf"):
+def mrf_main_path(device, rig, true_depth, wta_coverage, path="mvs_mrf",
+                  with_loop=False):
     """mvs_depth_maps with use_mrf, as ``cli stereo --mrf`` calls it;
     returns each kernel's launches in this run.
 
@@ -931,7 +1005,9 @@ def mrf_main_path(device, rig, true_depth, wta_coverage, path="mvs_mrf"):
     at most cfg.mrf_energy_eps) keeps that iteration's labels, as the JAX
     package's loop does, even where they stand above the start
     (tests/test_torch_wide_windows.py holds the two loops to each other on
-    K = 32 lists); such views are counted and printed."""
+    K = 32 lists); such views are counted and printed.  With
+    ``with_loop``, the call's per-view loop form is gated bit-equal to its
+    batched form (``loop_form``)."""
     from stereoreconstruction_tpu_torch.stereo import multiview
 
     cams, cfg, rgbs, masks = rig
@@ -939,7 +1015,7 @@ def mrf_main_path(device, rig, true_depth, wta_coverage, path="mvs_mrf"):
     calls = []
     with recording(multiview, "trws_optimize",
                    lambda a, res: calls.append((a, res))):
-        depths, wall, launches = counted(
+        depths, wall, launches, peak = peak_counted(
             device, path, lambda: multiview.mvs_depth_maps(
                 rgbs, masks, cams, cfg, device=device))
     step = (cfg.max_depth - cfg.min_depth) / (cfg.num_depth_levels - 1)
@@ -972,13 +1048,18 @@ def mrf_main_path(device, rig, true_depth, wta_coverage, path="mvs_mrf"):
                              "start")
     if not (med <= step and coverage >= MRF_MIN_COVERAGE):
         raise AssertionError("MRF depth maps fail the analytic check")
+    if with_loop:
+        FORM_STATS[path] = loop_form(device, path, rig, cfg, depths, wall,
+                                     peak)
     return launches
 
 
 def profiled(device, title, body):
     """Run ``body(timed)`` under torch.profiler, where ``timed(name, fn)``
     calls ``fn`` between synchronizes and adds its host-clock time to stage
-    ``name``; print the stages and the device's busy time by kernel."""
+    ``name``; print the stages and the device's busy time by kernel.
+    Returns {"wall": s, "launches": kernel launches recorded, "stages":
+    {stage: host s}, "device": {stage: device s}}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1025,50 +1106,79 @@ def profiled(device, title, body):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"profile:   {e.self_device_time_total / 1e3:9.2f} ms "
               f"{e.count:6d}x  {e.key[:90]}")
+    return dict(wall=wall, launches=sum(e.count for e in kernels),
+                stages=stages, device=stage_dev)
 
 
-def profile_main_path(device, rig, outdir):
-    """Where the MVS main path's time goes: its stages, called as
-    mvs_depth_maps and ``cli stereo`` call them."""
+COORD_STAGE = "weights + windows + coords"
+
+
+def profile_mvs(device, rig, outdir, use_mrf):
+    """Where an MVS main path's time goes: one mvs_depth_maps call, WTA
+    then the PLY as ``cli stereo`` writes it, or with use_mrf; its stages
+    timed by shims around the functions stereo/multiview.py calls, in two
+    sessions: the batched form, and the per-view loop (a DepthCheckpoint
+    in an empty temporary directory, whose writes fall in the untimed
+    rest).  Prints each session's kernel launches and the coordinate
+    stage's device seconds."""
     from stereoreconstruction_tpu_torch.data.ply import write_ply
-    from stereoreconstruction_tpu_torch.geometry.camera import camera_at
-    from stereoreconstruction_tpu_torch.ops.cuda_mvs import cuda_mvs_wta
-    from stereoreconstruction_tpu_torch.stereo.multiview import (
-        depth_maps_to_ply, mvs_cross_check_all, mvs_finalize_wta,
-        mvs_kernel_inputs, mvs_prepare_batched)
+    from stereoreconstruction_tpu_torch.runtime.checkpoint import (
+        DepthCheckpoint)
+    from stereoreconstruction_tpu_torch.stereo import multiview
 
     cams, cfg, rgbs, masks = rig
+    cfg = dataclasses.replace(cfg, use_mrf=use_mrf)
+    title = "MVS MRF main path" if use_mrf else "MVS main path"
+    reports = {}
+    for form in ("batched", "loop"):
+        stages = {"mvs_prepare_batched": "host prep",
+                  "mvs_kernel_inputs": COORD_STAGE}
+        if use_mrf:
+            stages.update(cuda_mvs_topk="top-K sweep kernel",
+                          trws_optimize="TRW-S",
+                          labels_to_depth="labels_to_depth",
+                          mvs_cross_check_all="cross-check")
+        else:
+            stages.update(cuda_mvs_wta="sweep kernel",
+                          mvs_cross_check_all="cross-check",
+                          depth_maps_to_ply="back-projection (f64)")
+        iters = []
+        with tempfile.TemporaryDirectory() as tmp, recording(
+                multiview, "trws_optimize",
+                lambda _, res: iters.append(res.iterations)):
+            ck = None if form == "batched" else DepthCheckpoint(tmp, cfg)
 
-    def body(timed):
-        cams_all, cams_nbr, nbr_idx, nbr_valid, refr, dist = timed(
-            "host prep", lambda: mvs_prepare_batched(cams, cfg,
-                                                     torch.float32, device))
-        rgbs_t = torch.as_tensor(rgbs, dtype=torch.float32, device=device)
-        masks_t = torch.as_tensor(masks, device=device)
-        grays = (0.11 * rgbs_t[..., 0] + 0.59 * rgbs_t[..., 1]
-                 + 0.3 * rgbs_t[..., 2])
-        depths = []
-        for i in range(len(cams)):
-            nbr = torch.as_tensor(nbr_idx[i], device=device)
-            inputs = timed("weights + windows + coords", lambda: (
-                mvs_kernel_inputs(
-                    rgbs_t[i], grays[i], masks_t[i], grays[nbr],
-                    camera_at(cams_all, i), camera_at(cams_nbr, i), cfg,
-                    enable_refraction=refr, enable_distortion=dist)))
-            nv = torch.as_tensor(nbr_valid[i], device=device)
-            best_ncc, best_depth, _ = timed("sweep kernel", lambda: (
-                cuda_mvs_wta(nbr_valid=nv, radius=cfg.window_radius,
-                             thr=float(cfg.ncc_threshold), **inputs)))
-            depths.append(mvs_finalize_wta(best_ncc, best_depth, masks_t[i]))
-        depths = timed("cross-check", lambda: mvs_cross_check_all(
-            torch.stack(depths), cams_all, cfg, enable_refraction=refr,
-            enable_distortion=dist))
-        pts, cols = timed("back-projection (f64)", lambda: (
-            depth_maps_to_ply(depths, rgbs, cams, cfg, device=device)))
-        timed("write_ply (ASCII)", lambda: write_ply(
-            os.path.join(outdir, "profile.ply"), pts, cols))
+            def call(timed):
+                depths = multiview.mvs_depth_maps(
+                    rgbs, masks, cams, cfg, device=device, checkpoint=ck)
+                if not use_mrf:
+                    pts, cols = multiview.depth_maps_to_ply(
+                        depths, rgbs, cams, cfg, device=device)
+                    timed("write_ply (ASCII)", lambda: write_ply(
+                        os.path.join(outdir, "profile.ply"), pts, cols))
+            reports[form] = profile_shimmed(
+                device, title + (", batched" if form == "batched"
+                                 else ", per-view loop"),
+                multiview, stages, call)
+        if use_mrf:
+            print(f"profile:   TRW-S iterations a view {iters} "
+                  f"(sum {sum(iters)})")
+    report_forms("mvs_mrf" if use_mrf else "mvs", reports["batched"],
+                 reports["loop"])
 
-    profiled(device, "MVS main path", body)
+
+def report_forms(path, batched, loop):
+    """Print and keep (FORM_STATS) the two profiled forms' launches and
+    coordinate-stage seconds, host and device."""
+    figures = {}
+    for form, rep in (("batched", batched), ("loop", loop)):
+        figures[form] = dict(
+            wall_s=round(rep["wall"], 3), launches=rep["launches"],
+            coords_s=round(rep["stages"].get(COORD_STAGE, 0.0), 3),
+            coords_device_s=round(rep["device"].get(COORD_STAGE, 0.0), 3))
+    FORM_STATS.setdefault(path, {})["profile"] = figures
+    print(f"profile {path} forms ({nvidia_smi_line()}): "
+          + json.dumps(figures))
 
 
 # --------------------------------------------------------------------------
@@ -1489,9 +1599,10 @@ def check_sampler(device, sampled, reps, plain_reps):
 
 
 def profile_shimmed(device, title, module, stages, call):
-    """Where one entry-point call's time goes: ``call()`` under
+    """Where one entry-point call's time goes: ``call(timed)`` under
     torch.profiler, each stage timed by a shim around the module-level
-    function of ``module`` that runs it ({function name: stage name})."""
+    function of ``module`` that runs it ({function name: stage name}), or
+    by ``call`` through ``timed`` (see ``profiled``)."""
     originals = {f: getattr(module, f) for f in stages}
 
     def body(timed):
@@ -1501,12 +1612,12 @@ def profile_shimmed(device, title, module, stages, call):
         try:
             for f in stages:
                 setattr(module, f, shim(f))
-            call()
+            call(timed)
         finally:
             for f, fn in originals.items():
                 setattr(module, f, fn)
 
-    profiled(device, title, body)
+    return profiled(device, title, body)
 
 
 def profile_twoview(device, rig2, use_mrf):
@@ -1527,30 +1638,9 @@ def profile_twoview(device, rig2, use_mrf):
     profile_shimmed(
         device, "two-view MRF main path" if use_mrf
         else "two-view main path", twoview, stages,
-        lambda: twoview.compute_depth_maps(
+        lambda _: twoview.compute_depth_maps(
             rgbs[0], masks[0], rgbs[1], masks[1], cams[0], cams[1], cfg,
             method="kernel", use_mrf=use_mrf, device=device))
-
-
-def profile_mrf(device, rig):
-    """Where the MVS MRF main path's time goes: one mvs_depth_maps call
-    with use_mrf, its stages timed by shims in stereo/multiview.py."""
-    from stereoreconstruction_tpu_torch.stereo import multiview
-
-    cams, cfg, rgbs, masks = rig
-    cfg = dataclasses.replace(cfg, use_mrf=True)
-    stages = {"mvs_kernel_inputs": "weights + windows + coords",
-              "cuda_mvs_topk": "top-K sweep kernel",
-              "trws_optimize": "TRW-S",
-              "labels_to_depth": "labels_to_depth",
-              "mvs_cross_check_all": "cross-check"}
-    iters = []
-    with recording(multiview, "trws_optimize",
-                   lambda _, res: iters.append(res.iterations)):
-        profile_shimmed(device, "MVS MRF main path", multiview, stages,
-                        lambda: multiview.mvs_depth_maps(
-                            rgbs, masks, cams, cfg, device=device))
-    print(f"profile:   TRW-S iterations a view {iters} (sum {sum(iters)})")
 
 
 # --------------------------------------------------------------------------
@@ -2757,6 +2847,170 @@ def workflow_phase(device, scene_rgbs, true_depth):
                 and l2["sample_nearest"] >= 1):
             raise AssertionError("the resumed stereo run differs")
     return {k: round(v, 3) for k, v in times.items()}
+
+
+# --------------------------------------------------------------------------
+# The refractive pipeline from images (phase 21b)
+# --------------------------------------------------------------------------
+
+# tests/test_refraction_e2e.py's fixture: 4 views at 120x160 behind ports
+# tilted by 0.08 rad, 6 boards of 8 x 6 inner corners, each (plane
+# distance, plane normal, board centre)
+E2E_VIEWS, E2E_H, E2E_W, E2E_FOCAL = 4, 120, 160, 250.0
+E2E_INDEX, E2E_PORT_DIST, E2E_TILT = 1.333, 5.0, 0.08
+E2E_COLS, E2E_ROWS = 8, 6
+E2E_BOARDS = [(30.0, (0, 0, 1), (0, 0)), (40.0, (0, 0, 1), (2.0, 1.2)),
+              (50.0, (0.15, 0, 1), (-1.6, 0.8)),
+              (35.0, (-0.1, 0.1, 1), (1.0, -1.0)),
+              (45.0, (0, -0.15, 1), (-0.6, -1.6)),
+              (55.0, (0.1, 0.1, 1), (1.8, 0.4))]
+# the GUI's start values: the index, the distance, and the principal point
+# as each normal's piercing pixel
+E2E_START_INDEX, E2E_START_DIST = 1.30, 3.0
+
+
+def checkerboard_texture(xy, *, cols, rows, cell, center, sharp=12.0):
+    """tests/synth.py's smooth finite checkerboard of world-plane coords
+    [..., 2] (cols x rows inner corners), grey RGB in 0..255."""
+    x = (xy[..., 0] - center[0]) / cell + (cols + 1) / 2.0
+    y = (xy[..., 1] - center[1]) / cell + (rows + 1) / 2.0
+    checker = (np.tanh(sharp * np.sin(np.pi * x))
+               * np.tanh(sharp * np.sin(np.pi * y)))
+    win = (1.0 / (1.0 + np.exp(-6.0 * x))
+           * 1.0 / (1.0 + np.exp(-6.0 * (cols + 1 - x)))
+           * 1.0 / (1.0 + np.exp(-6.0 * y))
+           * 1.0 / (1.0 + np.exp(-6.0 * (rows + 1 - y))))
+    v = 127.5 + 110.0 * checker * win
+    return np.repeat(v[..., None], 3, axis=-1)
+
+
+def render_through_port(cam, h, w, normal, dist, texture):
+    """One view of the textured world plane normal . X = dist, through the
+    camera's port at the pixel centres (numpy float64)."""
+    ys, xs = np.meshgrid(np.arange(h) + 0.5, np.arange(w) + 0.5,
+                         indexing="ij")
+    o, d = rays_at(cam, xs, ys)
+    t = (dist - o @ normal) / (d @ normal)
+    return texture((o + t[..., None] * d)[..., :2])
+
+
+def index_frame(K):
+    """K in the detector's pixel frame, where a pixel's centre is at its
+    integer index (the renders' K puts it at index + 0.5): the frame of
+    the corners ``detect`` stores, and so of a project's cameras."""
+    return K - np.array([[0, 0, 0.5], [0, 0, 0.5], [0, 0, 0]])
+
+
+def ports_project(tmp, cams):
+    """ports.xml under ``tmp`` with the port's project_io: the rig's
+    cameras at their true poses (in the detector's pixel frame) with the
+    GUI's start interface, and one image set a board, rendered through the
+    true ports (PNG)."""
+    from PIL import Image
+
+    from stereoreconstruction_tpu_torch.data.project_io import (
+        CameraRecord, ImageRecord, ImageSetRecord, ProjectData, save_project)
+
+    proj = ProjectData(path=os.path.join(tmp, "ports.xml"))
+    for i, cam in enumerate(cams):
+        K = index_frame(cam["K"])
+        proj.cameras[f"cam{i}"] = CameraRecord(
+            id=f"cam{i}", name=f"cam{i}",
+            P=K @ np.hstack([cam["R"], cam["t"][:, None]]), dist=np.zeros(5),
+            refr_px=K[0, 2], refr_py=K[1, 2], refr_dist=E2E_START_DIST,
+            refr_index=E2E_START_INDEX)
+    for s, (pd, pn, ctr) in enumerate(E2E_BOARDS):
+        pn = np.asarray(pn, float) / np.linalg.norm(pn)
+        tex = lambda xy, pd=pd, ctr=ctr: checkerboard_texture(
+            xy, cols=E2E_COLS, rows=E2E_ROWS, cell=pd / 22.0, center=ctr)
+        sid = f"b{s}"
+        iset = ImageSetRecord(id=sid, name=sid, root=tmp)
+        for i, cam in enumerate(cams):
+            fn = os.path.join(tmp, f"{sid}_cam{i}.png")
+            rgb = render_through_port(cam, E2E_H, E2E_W, pn, pd, tex)
+            Image.fromarray(np.round(rgb).astype(np.uint8)).save(fn)
+            iset.images.append(ImageRecord(file=fn, camera_id=f"cam{i}"))
+        proj.image_sets[sid] = iset
+    save_project(proj, proj.path)
+    return proj.path
+
+
+def refraction_images_phase(device):
+    """Phase 21b, the refractive pipeline from images through the port's
+    CLI, on tests/test_refraction_e2e.py's fixture: boards rendered
+    through the rig's tilted ports, then ``detect``, ``match`` and
+    ``refraction`` on the card from the GUI's start values.  Gates, the
+    JAX test's bounds against the truth: at least 5 x views - 2 boards
+    found and over 1000 correspondences; chi2 below 0.35x the start's and
+    at most 1.05x the truth's, the no-refraction model's above 10x the
+    fit's; the index within 0.05, each piercing pixel within 12 px (x) and
+    6 px (y), each distance in (1.5, 8.0); no launch of the five kernels.
+    Returns each step's seconds and the fit's figures."""
+    from stereoreconstruction_tpu_torch.calib.refraction import (
+        gather_correspondences, total_error)
+    from stereoreconstruction_tpu_torch.data.project_io import load_project
+
+    print(f"refraction-from-images phase on {nvidia_smi_line()}")
+    cams = converging_rig(E2E_VIEWS, focal=E2E_FOCAL, h=E2E_H, w=E2E_W,
+                          baseline=8.0, target_z=45.0, refr_index=E2E_INDEX,
+                          plane_dist=E2E_PORT_DIST, tilt=E2E_TILT)
+    K = index_frame(cams[0]["K"])
+    truth = np.concatenate([[E2E_INDEX]] + [
+        [*(K @ c["normal"])[:2] / (K @ c["normal"])[2], c["plane_dist"]]
+        for c in cams])
+    board = ["--cols", str(E2E_COLS + 1), "--rows", str(E2E_ROWS + 1)]
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = ports_project(tmp, cams)
+        times["render and write"] = time.perf_counter() - t0
+        launched = {}
+        times["detect"], launched["detect"] = cli_run(
+            device, ["detect", path] + board)
+        times["match"], launched["match"] = cli_run(device, ["match", path])
+        fitted = os.path.join(tmp, "fitted.xml")
+        times["refraction"], launched["refraction"] = cli_run(
+            device, ["refraction", path, "-o", fitted])
+        proj = load_project(path)
+        recs = load_project(fitted).cameras
+    ids = [f"cam{i}" for i in range(len(cams))]
+    boards = len(proj.features)
+    corr = gather_correspondences(proj, ids, sorted(proj.image_sets))
+    start_cams = [proj.cameras[c].to_camera() for c in ids]
+    model = np.concatenate([[recs[ids[0]].refr_index]] + [
+        [recs[c].refr_px, recs[c].refr_py, recs[c].refr_dist] for c in ids])
+    m0 = np.concatenate([[E2E_START_INDEX]]
+                        + [[K[0, 2], K[1, 2], E2E_START_DIST]] * len(ids))
+    nofr = np.concatenate([[1.0]] + [[K[0, 2], K[1, 2], 1.0]] * len(ids))
+    chi2 = {k: total_error(start_cams, m, *corr, device=device)[0]
+            for k, m in (("start", m0), ("fit", model), ("truth", truth),
+                         ("no refraction", nofr))}
+    err = np.abs(model - truth)
+    print(f"refraction from images: {boards} of "
+          f"{len(E2E_BOARDS) * len(cams)} boards found, "
+          f"{len(corr[0])} correspondences; chi2 "
+          + ", ".join(f"{k} {v:.4f}" for k, v in chi2.items())
+          + f"; index {model[0]:.5f} (truth {E2E_INDEX}); piercing pixels "
+          f"off by x {np.round(err[1::3], 3).tolist()} px, y "
+          f"{np.round(err[2::3], 3).tolist()} px; distances "
+          f"{np.round(model[3::3], 3).tolist()} (truth {E2E_PORT_DIST})")
+    print("refraction-from-images stages, s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in times.items()))
+    if not (boards >= 5 * len(cams) - 2 and len(corr[0]) > 1000):
+        raise AssertionError("too few boards or correspondences")
+    if not (chi2["fit"] < 0.35 * chi2["start"]
+            and chi2["fit"] <= 1.05 * chi2["truth"]
+            and chi2["no refraction"] > 10 * chi2["fit"]):
+        raise AssertionError("the refraction fit's chi2 is off")
+    if not (err[0] < 0.05 and np.all(err[1::3] < 12)
+            and np.all(err[2::3] < 6)
+            and np.all((model[3::3] > 1.5) & (model[3::3] < 8.0))):
+        raise AssertionError("the fitted interface is off the truth")
+    if any(v for lv in launched.values() for v in lv.values()):
+        raise AssertionError(f"a verb launched a kernel: {launched}")
+    return dict({k: round(v, 3) for k, v in times.items()},
+                chi2={k: round(v, 4) for k, v in chi2.items()},
+                index=round(float(model[0]), 5))
 
 
 # --------------------------------------------------------------------------
@@ -4008,10 +4262,10 @@ def main():
     outdir = work.name
     launches["mvs"], wta_coverage, sampled = main_path(
         device, rig, true_depth, outdir)
-    profile_main_path(device, rig, outdir)
+    profile_mvs(device, rig, outdir, use_mrf=False)
     launches["mvs_mrf"] = mrf_main_path(device, rig, true_depth,
-                                        wta_coverage)
-    profile_mrf(device, rig)
+                                        wta_coverage, with_loop=True)
+    profile_mvs(device, rig, outdir, use_mrf=True)
 
     tv = twoview_inputs(device, rig2)
     warp_row, warped, wvalid = check_warp(device, tv, reps=10, plain_reps=3)
@@ -4072,6 +4326,10 @@ def main():
     print(f"workflow phase in {time.perf_counter() - t0:.1f} s: "
           + json.dumps(workflow))
     t0 = time.perf_counter()
+    refraction = refraction_images_phase(device)
+    print(f"refraction-from-images phase in {time.perf_counter() - t0:.1f} "
+          "s: " + json.dumps(refraction))
+    t0 = time.perf_counter()
     launches["twoview_sad"], verbs = verbs_phase(
         device, rig2, true_depth[:2], scene_rgbs,
         os.path.join(outdir, "scene.ply"))
@@ -4092,6 +4350,7 @@ def main():
     for row in rows:
         row["launches"] = sum(launches[p].get(row["counter"], 0)
                               for p in row["paths"])
+    print("forms: " + json.dumps(FORM_STATS))
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "instance", "full_ms")

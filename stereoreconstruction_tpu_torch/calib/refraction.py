@@ -56,6 +56,18 @@ def _interfaces(Kinv, model):
     return n, d
 
 
+def _cam_with_model(cams: Camera, v: int, model):
+    """Camera v of a stacked Camera with the model's interface: the normal
+    through its piercing pixel, its distance and the shared index (the
+    JAX package's ``_cam_with_model``).  ``model`` [3V+1] (numpy or a
+    tensor) takes the cameras' device and dtype."""
+    model = torch.as_tensor(model, dtype=cams.K.dtype, device=cams.K.device)
+    normals, dists = _interfaces(cams.Kinv, model)
+    cam = Camera(*[f[v] for f in cams])
+    return cam._replace(plane_normal=normals[v], plane_dist=dists[v],
+                        refr_index=model[0])
+
+
 def make_residual_fn(cams: Sequence[Camera], p1, p2, vi1, vi2,
                      device=None):
     """Residual function over all correspondences, on ``device`` (CUDA

@@ -25,6 +25,13 @@ gather formulation with float64 geodesic weights.  The JAX package's
 ``"fast"`` and ``"pallas"`` methods are TPU formulations of the kernel
 method and map to it.  The cross-check's scattered read goes through the
 sampling kernel (ops/cuda_sample.py) on both methods.
+
+Dispatch (as the JAX package's ``mvs_depth_maps``): without a checkpoint
+and a depth group, ``mvs_depth_maps`` runs the batched functions
+(``mvs_initial_estimates_batched``, ``mvs_batched_with_cross_check``,
+``mvs_batched_mrf_with_cross_check``), which run the views one at a time
+as the JAX package's scan does; with either, the per-view loop.  Both give
+the same maps bit for bit.
 """
 
 from __future__ import annotations
@@ -241,6 +248,14 @@ def mvs_finalize_wta(best_ncc, best_depth, mask_ref):
     return torch.where(mask_ref, depth_map, torch.inf)
 
 
+def _mrf_depth(top_ncc, top_depth, mask_ref, cfg: MultiViewConfig):
+    """The USE_MRF flow on one view's hypothesis lists: TRW-S with
+    ``cfg.mrf_max_iters``, ``labels_to_depth``, inf where masked."""
+    res = trws_optimize(top_ncc, top_depth, cfg, max_iters=cfg.mrf_max_iters)
+    return torch.where(mask_ref, labels_to_depth(res.labels, top_depth),
+                       torch.inf)
+
+
 def mvs_initial_estimate_oneview(
         rgb_ref, gray_ref, mask_ref, grays_nbr, masks_nbr,
         cam_ref: Camera, cams_nbr: Camera, cfg: MultiViewConfig, *,
@@ -349,6 +364,101 @@ def mvs_cross_check_all(depths_all, cams_all: Camera, cfg: MultiViewConfig,
     return state
 
 
+def _scan_views(rgbs, grays, masks, grays_nbr, masks_nbr,
+                cams_all: Camera, cams_nbr: Camera, nbr_valid,
+                cfg: MultiViewConfig, n_neighbours: int, *,
+                enable_refraction, enable_distortion, method, use_mrf,
+                device):
+    """Every view's initial estimate in view order, one view at a time as
+    the JAX package's scan runs them: ``mvs_initial_estimate_oneview``'s
+    WTA map, or with ``use_mrf`` its top-K lists through ``_mrf_depth``.
+    Returns depths [V, H, W]."""
+    dev = resolve_device(device)
+    grays = torch.as_tensor(grays, device=dev)
+    dtype = grays.dtype
+    rgbs = torch.as_tensor(rgbs, dtype=dtype, device=dev)
+    masks = torch.as_tensor(masks, dtype=torch.bool, device=dev)
+    grays_nbr = torch.as_tensor(grays_nbr, dtype=dtype, device=dev)
+    masks_nbr = torch.as_tensor(masks_nbr, dtype=torch.bool, device=dev)
+    cams_all = cams_all.to(dev, dtype)
+    cams_nbr = cams_nbr.to(dev, dtype)
+    nbr_valid = torch.as_tensor(nbr_valid, dtype=torch.bool, device=dev)
+    if grays_nbr.shape[1] != n_neighbours:
+        raise ValueError(f"grays_nbr has {grays_nbr.shape[1]} neighbours, "
+                         f"n_neighbours is {n_neighbours}")
+    depths = []
+    for i in range(grays.shape[0]):
+        est = mvs_initial_estimate_oneview(
+            rgbs[i], grays[i], masks[i], grays_nbr[i], masks_nbr[i],
+            camera_at(cams_all, i), camera_at(cams_nbr, i), cfg,
+            enable_refraction=enable_refraction,
+            enable_distortion=enable_distortion, method=method,
+            nbr_valid=nbr_valid[i], with_topk=use_mrf, device=dev)
+        depths.append(_mrf_depth(*est, masks[i], cfg) if use_mrf else est)
+    return torch.stack(depths)
+
+
+def mvs_initial_estimates_batched(
+        rgbs, grays, masks, grays_nbr, masks_nbr, cams_all: Camera,
+        cams_nbr: Camera, nbr_valid, cfg: MultiViewConfig,
+        n_neighbours: int, *, enable_refraction=True,
+        enable_distortion=True, method: str = "fast", device=None):
+    """Initial WTA estimates for every view (the JAX package's scan of
+    ``mvs_initial_estimate_oneview``).
+
+    rgbs [V, H, W, 3]; grays/masks [V, H, W]; grays_nbr/masks_nbr
+    [V, N, H, W]; cams_all/cams_nbr Cameras stacked over V / (V, N);
+    nbr_valid [V, N] bool; n_neighbours the padded N.  The dtype of
+    ``grays`` sets the sweep's.  Returns depths [V, H, W] on ``device``
+    (CUDA unless the caller names another), equal bit for bit to the
+    per-view ``mvs_initial_estimate_oneview``."""
+    return _scan_views(
+        rgbs, grays, masks, grays_nbr, masks_nbr, cams_all, cams_nbr,
+        nbr_valid, cfg, n_neighbours, enable_refraction=enable_refraction,
+        enable_distortion=enable_distortion, method=method, use_mrf=False,
+        device=device)
+
+
+def mvs_batched_with_cross_check(
+        rgbs, grays, masks, grays_nbr, masks_nbr, cams_all: Camera,
+        cams_nbr: Camera, nbr_valid, cfg: MultiViewConfig,
+        n_neighbours: int, *, enable_refraction=True,
+        enable_distortion=True, method: str = "auto", device=None):
+    """``mvs_initial_estimates_batched`` then the any-view cross-check
+    (``mvs_cross_check_all``) over every view."""
+    depths = mvs_initial_estimates_batched(
+        rgbs, grays, masks, grays_nbr, masks_nbr, cams_all, cams_nbr,
+        nbr_valid, cfg, n_neighbours, enable_refraction=enable_refraction,
+        enable_distortion=enable_distortion, method=method, device=device)
+    return mvs_cross_check_all(
+        depths, cams_all.to(depths.device, depths.dtype), cfg,
+        enable_refraction=enable_refraction,
+        enable_distortion=enable_distortion)
+
+
+def mvs_batched_mrf_with_cross_check(
+        rgbs, grays, masks, grays_nbr, masks_nbr, cams_all: Camera,
+        cams_nbr: Camera, nbr_valid, cfg: MultiViewConfig,
+        n_neighbours: int, *, enable_refraction=True,
+        enable_distortion=True, method: str = "auto",
+        cross_check: bool = True, device=None):
+    """The USE_MRF flow for every view, one view at a time: its top-K
+    hypothesis lists, TRW-S and ``labels_to_depth`` (inf where masked);
+    then the any-view cross-check when ``cross_check``.  Arguments as
+    ``mvs_initial_estimates_batched``."""
+    depths = _scan_views(
+        rgbs, grays, masks, grays_nbr, masks_nbr, cams_all, cams_nbr,
+        nbr_valid, cfg, n_neighbours, enable_refraction=enable_refraction,
+        enable_distortion=enable_distortion, method=method, use_mrf=True,
+        device=device)
+    if not cross_check:
+        return depths
+    return mvs_cross_check_all(
+        depths, cams_all.to(depths.device, depths.dtype), cfg,
+        enable_refraction=enable_refraction,
+        enable_distortion=enable_distortion)
+
+
 def mvs_depth_maps(rgbs, masks, cams: Sequence[Camera],
                    cfg: MultiViewConfig, *, cross_check=True,
                    enable_refraction=True, enable_distortion=True,
@@ -364,6 +474,13 @@ def mvs_depth_maps(rgbs, masks, cams: Sequence[Camera],
     Cameras (any device and dtype; the sweep casts them to ``dtype``).
     Returns depths [V, H, W] on ``device`` (CUDA unless the caller names
     another).
+
+    Without ``checkpoint`` and ``depth_group`` (and with at least one
+    view) the batched functions run, as in the JAX package:
+    ``mvs_batched_mrf_with_cross_check`` when ``cfg.use_mrf``, else
+    ``mvs_batched_with_cross_check`` or, without the cross-check,
+    ``mvs_initial_estimates_batched``.  With either, the per-view loop
+    below runs; both give the same maps bit for bit.
 
     checkpoint: optional ``runtime.checkpoint.DepthCheckpoint``.  A view
     whose initial estimate (before the cross-check) the store holds for
@@ -395,6 +512,23 @@ def mvs_depth_maps(rgbs, masks, cams: Sequence[Camera],
     if view_ids is None:
         view_ids = [str(i) for i in range(len(cams))]
 
+    if checkpoint is None and depth_group is None and len(cams) > 0:
+        nbr = torch.as_tensor(nbr_idx, device=dev)
+        args = (rgbs, grays, masks, grays[nbr], masks[nbr], cams_all,
+                cams_nbr, nbr_valid, cfg, nbr_idx.shape[1])
+        kw = dict(enable_refraction=enable_refraction,
+                  enable_distortion=enable_distortion, method=method,
+                  device=dev)
+        if cfg.use_mrf:
+            with trace("mvs/mrf_batched"):
+                return mvs_batched_mrf_with_cross_check(
+                    *args, cross_check=cross_check, **kw)
+        if cross_check:
+            with trace("mvs/estimates_and_cross_check"):
+                return mvs_batched_with_cross_check(*args, **kw)
+        with trace("mvs/initial_estimates_batched"):
+            return mvs_initial_estimates_batched(*args, **kw)
+
     depths = []
     for i in range(len(cams)):
         if checkpoint is not None:
@@ -420,12 +554,7 @@ def mvs_depth_maps(rgbs, masks, cams: Sequence[Camera],
                 est = mvs_initial_estimate_oneview(
                     *view_args, method=method, with_topk=cfg.use_mrf, **kw)
             if cfg.use_mrf:
-                top_ncc, top_depth = est
-                res = trws_optimize(top_ncc, top_depth, cfg,
-                                    max_iters=cfg.mrf_max_iters)
-                est = torch.where(masks[i], labels_to_depth(res.labels,
-                                                            top_depth),
-                                  torch.inf)
+                est = _mrf_depth(*est, masks[i], cfg)
             if checkpoint is not None:
                 checkpoint.save(view_ids[i], est.cpu().numpy())
         depths.append(est)
