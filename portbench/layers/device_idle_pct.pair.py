@@ -1,0 +1,8 @@
+"""The share of the traced window in which no operation ran on the device
+(%), in the two-view cells."""
+
+from portbench.readers import idle_pct
+
+
+def read(run):
+    return idle_pct(run)
