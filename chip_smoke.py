@@ -2100,9 +2100,10 @@ def example_corners():
 
 def calib_run(device, call):
     """``call(device)`` timed on the host clock (ending in a synchronise on
-    CUDA) with the tracer reset before it; returns (result, seconds, the
-    tracer's report).  The kernels' counts are set to 0 just before and
-    read just after: the calibration path launches none of them."""
+    CUDA) with the tracer reset before it and on for it; returns (result,
+    seconds, the tracer's report).  The kernels' counts are set to 0 just
+    before and read just after: the calibration path launches none of
+    them."""
     from stereoreconstruction_tpu_torch.runtime import trace as tracing
 
     counters = kernel_counters()
@@ -2112,7 +2113,8 @@ def calib_run(device, call):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    out = call(device)
+    with tracing.switched_on():
+        out = call(device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0

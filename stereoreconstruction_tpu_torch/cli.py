@@ -60,11 +60,19 @@ for MVS; ``auto`` shards whenever the world has more than one rank.  Rank
       -m stereoreconstruction_tpu_torch.cli stereo project.xml \
       --image-set bunny --two-view --shard row -o out/
 
-Every verb with a project takes ``--trace [JSON]`` (a stage-timer and
-metric summary on stderr, and with a path the tracer's JSON there) and
-``--device-trace LOGDIR`` (a torch.profiler Chrome trace of the whole
-verb, ``LOGDIR/trace.json``; ``runtime.trace.device_op_table`` reads its
-kernel times).
+Every verb with a project takes ``--trace [JSON]`` and ``--device-trace
+LOGDIR``; either switches the tracer (``runtime/trace.py``) on for the
+verb, which is otherwise off.  ``--trace`` prints a summary on stderr:
+each stage's calls and host seconds and, on CUDA, its device ms (the
+CUDA-event time of its spans), the metrics, and the counters, among them
+``sync/<stage>``, the synchronising CUDA calls made inside each stage.
+With a path it also writes the tracer's JSON there: the same report and
+the span log (``spans``: each span's path, parent, request and host
+stamps on the profiler's clock, with its device ms), which lays over the
+Chrome trace of the same run.  ``--device-trace`` writes a torch.profiler
+Chrome trace of the whole verb, ``LOGDIR/trace.json``, in which every
+stage is a range; ``runtime.trace.device_op_table`` reads its kernel
+times.
 """
 
 from __future__ import annotations
@@ -587,9 +595,9 @@ def main(argv=None):
         sp.add_argument("project")
         sp.add_argument("--trace", metavar="JSON", nargs="?", const="-",
                         default=None,
-                        help="print a stage-timer/metric summary to stderr "
-                             "on exit; with a path, also dump structured "
-                             "JSON there")
+                        help="switch the tracer on; print a stage/metric/"
+                             "counter summary to stderr on exit; with a "
+                             "path, also dump its JSON and span log there")
         sp.add_argument("--device-trace", metavar="LOGDIR", default=None,
                         help="capture a torch.profiler trace of the whole "
                              "command into LOGDIR/trace.json (Chrome "
@@ -758,6 +766,8 @@ def main(argv=None):
         launcher.initialize_distributed(args.device)
     writer = launcher.is_coordinator()
     with contextlib.ExitStack() as stack:
+        if getattr(args, "trace", None) is not None and writer:
+            stack.enter_context(tracing.switched_on())
         if getattr(args, "device_trace", None) and writer:
             stack.enter_context(tracing.device_trace(args.device_trace))
         with tracing.trace(args.cmd):

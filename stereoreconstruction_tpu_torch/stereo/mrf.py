@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import MultiViewConfig
+from ..runtime.trace import count, timeit
 
 # neighbour order (up, down, left, right): (roll shift, axis) of each
 # direction's neighbour, and each direction's opposite
@@ -98,6 +99,7 @@ def _pair_energy(V, lab, dim):
     return pair[:, :-1].sum() if dim == 1 else pair[:-1, :].sum()
 
 
+@timeit("trws")
 def trws_optimize(top_ncc, top_depth, cfg: MultiViewConfig,
                   max_iters: int = 50, damping: float = 0.5) -> MRFResult:
     """Minimise the Campbell MRF over the hypothesis volume.
@@ -106,6 +108,7 @@ def trws_optimize(top_ncc, top_depth, cfg: MultiViewConfig,
     Returns MRFResult; ``labels == K`` means "unknown".  Iterates until the
     energy improvement <= cfg.mrf_energy_eps (against the lowest energy so
     far) or ``max_iters``; the trace's unused tail holds the final energy.
+    Adds the iterations to the tracer's ``trws/iterations``.
     """
     K = top_ncc.shape[0]
     h, w = top_ncc.shape[1:]
@@ -143,6 +146,7 @@ def trws_optimize(top_ncc, top_depth, cfg: MultiViewConfig,
         if bool(prev_e - e <= cfg.mrf_energy_eps):
             break
         prev_e = torch.minimum(e, prev_e)
+    count("trws/iterations", len(trace))
     e, lab = energy_of(msgs)
     energies = torch.stack(trace + [e] * (max_iters - len(trace))) \
         if max_iters else e.new_zeros((0,))
@@ -181,6 +185,7 @@ def _truncated_linear_dt(h, lam, cap):
     return torch.minimum(out, h.amin(dim=-1, keepdim=True) + lam * cap)
 
 
+@timeit("twoview_bp")
 def twoview_bp(costs, *, smoothness_lambda: float = 0.25,
                smoothness_max: float = 2.0, smoothness_exp: int = 1,
                max_iters: int = 50, energy_eps: float = 5.0,
@@ -197,7 +202,8 @@ def twoview_bp(costs, *, smoothness_lambda: float = 0.25,
     a fixed-length scan in which the stop rule (dE <= energy_eps) freezes
     the messages; once frozen, every later iteration records the same
     energy, so this loop stops there and pads the trace with that energy:
-    the same labels and the same trace.
+    the same labels and the same trace.  Adds the iterations run to the
+    tracer's ``bp/iterations``.
     """
     lam = smoothness_lambda
     cap = smoothness_max
@@ -232,6 +238,7 @@ def twoview_bp(costs, *, smoothness_lambda: float = 0.25,
         if bool(prev_e - e <= energy_eps):
             break
         prev_e = torch.minimum(e, prev_e)
+    count("bp/iterations", len(trace))
     e, lab = energy_of(msgs)
     trace = torch.stack(trace + [e] * (max_iters - len(trace))) \
         if max_iters else e.new_zeros((0,))

@@ -51,7 +51,7 @@ from ..ops.cuda_mvs import (cuda_mvs_topk, cuda_mvs_wta, mvs_topk_slab,
 from ..ops.cuda_sample import cuda_sample_nearest
 from ..ops.ncc import _left_windows, mvs_cost_plane
 from ..ops.weights import compute_weights
-from ..runtime.trace import trace
+from ..runtime.trace import in_request, trace
 from .depthsweep import (depth_labels_uniform, match_points, pixel_rays,
                          point_from_depth)
 from .mrf import labels_to_depth, trws_optimize
@@ -144,34 +144,39 @@ def mvs_kernel_inputs(rgb_ref, gray_ref, mask_ref, grays_nbr,
     if n_labels is None:
         n_labels = cfg.num_depth_levels - label0
 
-    weights = compute_weights(rgb_ref, radius, cfg.weights,
-                              exact=False).to(dtype)
-    left_vals, left_valid, _ = _left_windows(gray_ref, mask_ref, radius)
+    with trace("mvs_inputs"):
+        with trace("mvs_weights"):
+            weights = compute_weights(rgb_ref, radius, cfg.weights,
+                                      exact=False).to(dtype)
+        left_vals, left_valid, _ = _left_windows(gray_ref, mask_ref, radius)
 
-    ray_o, ray_d = pixel_rays(cam_ref, h, w, cfg.image_scale,
-                              enable_refraction=enable_refraction,
-                              enable_distortion=enable_distortion,
-                              dtype=dtype)
-    depths = depth_labels_uniform(cfg.min_depth, cfg.max_depth,
-                                  cfg.num_depth_levels, dtype=dtype,
-                                  device=gray_ref.device)
-    slab = depths[label0:label0 + n_labels]
-    _, normal = principal_ray(cam_ref)
-    pts, pvalid = point_from_depth(ray_o, ray_d, cam_ref.C, normal,
-                                   slab[:, None, None])    # [n, H, W, 3]
-    xy, mvalid = match_points(
-        broadcast_camera(cams_nbr, 3), pts, pvalid, cfg.image_scale,
-        enable_refraction=enable_refraction,
-        enable_distortion=enable_distortion)                # [N, n, H, W, 2]
-    coords = torch.where(mvalid[..., None], xy, _COORD_SENTINEL)
-    return dict(
-        depths=depths,
-        coords=coords.permute(1, 0, 4, 2, 3).contiguous(),
-        gray_nbr=grays_nbr.contiguous(),
-        gl=left_vals.reshape(size * size, h, w).contiguous(),
-        lv=left_valid.reshape(size * size, h, w).contiguous(),
-        weights=weights.reshape(size * size, h, w).contiguous(),
-        center_valid=mask_ref.contiguous())
+        with trace("mvs_coords"):
+            ray_o, ray_d = pixel_rays(cam_ref, h, w, cfg.image_scale,
+                                      enable_refraction=enable_refraction,
+                                      enable_distortion=enable_distortion,
+                                      dtype=dtype)
+            depths = depth_labels_uniform(cfg.min_depth, cfg.max_depth,
+                                          cfg.num_depth_levels, dtype=dtype,
+                                          device=gray_ref.device)
+            slab = depths[label0:label0 + n_labels]
+            _, normal = principal_ray(cam_ref)
+            pts, pvalid = point_from_depth(
+                ray_o, ray_d, cam_ref.C, normal,
+                slab[:, None, None])                          # [n, H, W, 3]
+            xy, mvalid = match_points(
+                broadcast_camera(cams_nbr, 3), pts, pvalid, cfg.image_scale,
+                enable_refraction=enable_refraction,
+                enable_distortion=enable_distortion)          # [N, n, H, W, 2]
+            coords = torch.where(mvalid[..., None], xy, _COORD_SENTINEL)
+            coords = coords.permute(1, 0, 4, 2, 3).contiguous()
+        return dict(
+            depths=depths,
+            coords=coords,
+            gray_nbr=grays_nbr.contiguous(),
+            gl=left_vals.reshape(size * size, h, w).contiguous(),
+            lv=left_valid.reshape(size * size, h, w).contiguous(),
+            weights=weights.reshape(size * size, h, w).contiguous(),
+            center_valid=mask_ref.contiguous())
 
 
 def _mvs_kernel_sweep(rgb_ref, gray_ref, mask_ref, grays_nbr,
@@ -189,11 +194,12 @@ def _mvs_kernel_sweep(rgb_ref, gray_ref, mask_ref, grays_nbr,
         n_labels=n_labels)
     kw = dict(nbr_valid=nbr_valid, radius=cfg.window_radius,
               thr=float(cfg.ncc_threshold), label0=label0)
-    if with_topk:
-        del inputs["center_valid"]          # top-K sweeps every pixel
-        ncc, depth, _ = cuda_mvs_topk(top_k=cfg.top_k, **kw, **inputs)
-    else:
-        ncc, depth, _ = cuda_mvs_wta(**kw, **inputs)
+    with trace("mvs_sweep"):
+        if with_topk:
+            del inputs["center_valid"]          # top-K sweeps every pixel
+            ncc, depth, _ = cuda_mvs_topk(top_k=cfg.top_k, **kw, **inputs)
+        else:
+            ncc, depth, _ = cuda_mvs_wta(**kw, **inputs)
     return ncc, depth
 
 
@@ -318,50 +324,54 @@ def mvs_cross_check_oneview(depth_ref, depths_all, view_index,
     kw = dict(enable_refraction=enable_refraction,
               enable_distortion=enable_distortion)
 
-    ray_o, ray_d = pixel_rays(cam_ref, h, w, cfg.image_scale, dtype=dtype,
-                              **kw)
-    _, na = principal_ray(cam_ref)
-    finite = torch.isfinite(depth_ref)
-    depth_safe = torch.where(finite, depth_ref, 1.0)
-    p1, v1 = point_from_depth(ray_o, ray_d, cam_ref.C, na, depth_safe)
+    with trace("xc_project"):
+        ray_o, ray_d = pixel_rays(cam_ref, h, w, cfg.image_scale,
+                                  dtype=dtype, **kw)
+        _, na = principal_ray(cam_ref)
+        finite = torch.isfinite(depth_ref)
+        depth_safe = torch.where(finite, depth_ref, 1.0)
+        p1, v1 = point_from_depth(ray_o, ray_d, cam_ref.C, na, depth_safe)
 
-    cams_b = broadcast_camera(cams_all, 2)                  # [V, 1, 1]
-    xy_full, vproj = project(cams_b, p1, quartic_iters=30, **kw)
-    x2 = xy_full[..., 0] * cfg.image_scale                  # [V, H, W]
-    y2 = xy_full[..., 1] * cfg.image_scale
+        cams_b = broadcast_camera(cams_all, 2)              # [V, 1, 1]
+        xy_full, vproj = project(cams_b, p1, quartic_iters=30, **kw)
+        x2 = xy_full[..., 0] * cfg.image_scale              # [V, H, W]
+        y2 = xy_full[..., 1] * cfg.image_scale
 
     # the scattered depth[iy, ix] read of every other view: the sampling
     # kernel (its finite mask marks NaN/inf depths)
-    od, ofinite, _ = cuda_sample_nearest(depths_all.contiguous(), x2, y2)
-    od_safe = torch.where(ofinite, od, 1.0)
+    with trace("xc_sample"):
+        od, ofinite, _ = cuda_sample_nearest(depths_all.contiguous(), x2, y2)
 
-    contains = (x2 >= 0) & (y2 >= 0) & (x2 < w) & (y2 < h)
-    oxy = torch.stack([(x2 + 0.5) / cfg.image_scale,
-                       (y2 + 0.5) / cfg.image_scale], dim=-1)
-    r2o, r2d = unproject(cams_b, oxy, **kw)
-    _, nb = principal_ray(cams_b)
-    p2, v2 = point_from_depth(r2o, r2d, cams_b.C, nb, od_safe)
-    norm = _norm(p1 - p2)
-    agree = (vproj & contains & ofinite & v2 & torch.isfinite(norm)
-             & (norm < cfg.cross_check_threshold))
-    other = torch.arange(n_views, device=agree.device) != view_index
-    found = (agree & other[:, None, None]).any(dim=0)
+    with trace("xc_unproject"):
+        od_safe = torch.where(ofinite, od, 1.0)
+        contains = (x2 >= 0) & (y2 >= 0) & (x2 < w) & (y2 < h)
+        oxy = torch.stack([(x2 + 0.5) / cfg.image_scale,
+                           (y2 + 0.5) / cfg.image_scale], dim=-1)
+        r2o, r2d = unproject(cams_b, oxy, **kw)
+        _, nb = principal_ray(cams_b)
+        p2, v2 = point_from_depth(r2o, r2d, cams_b.C, nb, od_safe)
+        norm = _norm(p1 - p2)
+        agree = (vproj & contains & ofinite & v2 & torch.isfinite(norm)
+                 & (norm < cfg.cross_check_threshold))
+        other = torch.arange(n_views, device=agree.device) != view_index
+        found = (agree & other[:, None, None]).any(dim=0)
 
-    # pointFromDepth failure for the reference pixel -> keep as is.
-    return torch.where(finite & v1 & ~found, torch.nan, depth_ref)
+        # pointFromDepth failure for the reference pixel -> keep as is.
+        return torch.where(finite & v1 & ~found, torch.nan, depth_ref)
 
 
 def mvs_cross_check_all(depths_all, cams_all: Camera, cfg: MultiViewConfig,
                         *, enable_refraction=True, enable_distortion=True):
     """Sequential any-view cross-check over every view: later views see
     earlier invalidations (multiviewstereo.cpp:666-729 over all views)."""
-    state = depths_all.clone()
-    for i in range(state.shape[0]):
-        state[i] = mvs_cross_check_oneview(
-            state[i], state, i, camera_at(cams_all, i), cams_all, cfg,
-            enable_refraction=enable_refraction,
-            enable_distortion=enable_distortion)
-    return state
+    with trace("mvs_cross_check_all"):
+        state = depths_all.clone()
+        for i in range(state.shape[0]):
+            state[i] = mvs_cross_check_oneview(
+                state[i], state, i, camera_at(cams_all, i), cams_all, cfg,
+                enable_refraction=enable_refraction,
+                enable_distortion=enable_distortion)
+        return state
 
 
 def _scan_views(rgbs, grays, masks, grays_nbr, masks_nbr,
@@ -459,6 +469,7 @@ def mvs_batched_mrf_with_cross_check(
         enable_distortion=enable_distortion)
 
 
+@in_request
 def mvs_depth_maps(rgbs, masks, cams: Sequence[Camera],
                    cfg: MultiViewConfig, *, cross_check=True,
                    enable_refraction=True, enable_distortion=True,
@@ -500,22 +511,25 @@ def mvs_depth_maps(rgbs, masks, cams: Sequence[Camera],
     a depth group.  Every rank of the group must make the same call.
     """
     dev = resolve_device(device)
-    cams_all, cams_nbr, nbr_idx, nbr_valid, refr, dist = \
-        mvs_prepare_batched(cams, cfg, dtype, dev)
-    enable_refraction = enable_refraction and refr
-    enable_distortion = enable_distortion and dist
+    batched = checkpoint is None and depth_group is None and len(cams) > 0
+    with trace("mvs_prepare"):
+        cams_all, cams_nbr, nbr_idx, nbr_valid, refr, dist = \
+            mvs_prepare_batched(cams, cfg, dtype, dev)
+        enable_refraction = enable_refraction and refr
+        enable_distortion = enable_distortion and dist
 
-    rgbs = torch.as_tensor(rgbs, dtype=dtype, device=dev)
-    masks = torch.as_tensor(masks, dtype=torch.bool, device=dev)
-    grays = (0.11 * rgbs[..., 0] + 0.59 * rgbs[..., 1]
-             + 0.3 * rgbs[..., 2])
+        rgbs = torch.as_tensor(rgbs, dtype=dtype, device=dev)
+        masks = torch.as_tensor(masks, dtype=torch.bool, device=dev)
+        grays = (0.11 * rgbs[..., 0] + 0.59 * rgbs[..., 1]
+                 + 0.3 * rgbs[..., 2])
+        if batched:
+            nbr = torch.as_tensor(nbr_idx, device=dev)
+            args = (rgbs, grays, masks, grays[nbr], masks[nbr], cams_all,
+                    cams_nbr, nbr_valid, cfg, nbr_idx.shape[1])
     if view_ids is None:
         view_ids = [str(i) for i in range(len(cams))]
 
-    if checkpoint is None and depth_group is None and len(cams) > 0:
-        nbr = torch.as_tensor(nbr_idx, device=dev)
-        args = (rgbs, grays, masks, grays[nbr], masks[nbr], cams_all,
-                cams_nbr, nbr_valid, cfg, nbr_idx.shape[1])
+    if batched:
         kw = dict(enable_refraction=enable_refraction,
                   enable_distortion=enable_distortion, method=method,
                   device=dev)

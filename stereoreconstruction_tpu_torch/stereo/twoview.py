@@ -63,7 +63,7 @@ from ..ops.ncc import _left_windows, sad_cost_plane, twoview_cost_plane
 from ..ops.ncc_fast import COORD_SENTINEL
 from ..ops.sampling import sample_valid
 from ..ops.weights import compute_weights
-from ..runtime.trace import trace
+from ..runtime.trace import in_request, trace
 from .depthsweep import (depth_labels_twoview, match_points, pixel_rays,
                          point_from_depth)
 from .mrf import twoview_bp
@@ -106,13 +106,14 @@ def twoview_coords(cam_ref: Camera, cam_oth: Camera, cfg: TwoViewConfig,
     one view (the warp kernel's input), of global rows [row0, row0 + H):
     x2/y2 in the other view's scaled pixel frame, -3e6 where the match point
     is invalid."""
-    depths, match_at = _sweep_geometry(
-        cam_ref, cam_oth, cfg, h, w, dtype,
-        enable_refraction=enable_refraction,
-        enable_distortion=enable_distortion, row0=row0)
-    xy, mvalid = match_at(depths[:, None, None])          # [D, H, W, 2]
-    coords = torch.where(mvalid[..., None], xy, COORD_SENTINEL)
-    return depths, coords.permute(0, 3, 1, 2).contiguous()
+    with trace("twoview_coords"):
+        depths, match_at = _sweep_geometry(
+            cam_ref, cam_oth, cfg, h, w, dtype,
+            enable_refraction=enable_refraction,
+            enable_distortion=enable_distortion, row0=row0)
+        xy, mvalid = match_at(depths[:, None, None])      # [D, H, W, 2]
+        coords = torch.where(mvalid[..., None], xy, COORD_SENTINEL)
+        return depths, coords.permute(0, 3, 1, 2).contiguous()
 
 
 def _block_planes(mask_ref, row0=0, full_h=None):
@@ -147,23 +148,26 @@ def _kernel_sweep(rgb_ref, gray_ref, mask_ref, gray_oth, mask_oth,
     docstring)."""
     h, w = gray_ref.shape
     pixel_valid, _, left_valid = _block_planes(mask_ref, row0, full_h)
-    weights = compute_weights(rgb_ref, cfg.window_radius, cfg.weights,
-                              exact=False,
-                              pixel_valid=pixel_valid).to(gray_ref.dtype)
+    with trace("twoview_weights"):
+        weights = compute_weights(rgb_ref, cfg.window_radius, cfg.weights,
+                                  exact=False,
+                                  pixel_valid=pixel_valid).to(gray_ref.dtype)
     depths, coords = twoview_coords(cam_ref, cam_oth, cfg, h, w,
                                     gray_ref.dtype,
                                     enable_refraction=enable_refraction,
                                     enable_distortion=enable_distortion,
                                     row0=row0)
-    warped, wvalid, _ = cuda_warp_bilinear(coords, gray_oth.contiguous(),
-                                           mask_oth.contiguous())
+    with trace("twoview_warp"):
+        warped, wvalid, _ = cuda_warp_bilinear(coords, gray_oth.contiguous(),
+                                               mask_oth.contiguous())
     args = (warped, wvalid, gray_ref.contiguous(), left_valid,
             weights.contiguous())
     kw = dict(radius=cfg.window_radius, max_color_diff=cfg.max_color_diff,
               bad_ret=cfg.bad_ret)
-    if volume:
-        return depths, cuda_cost_volume(*args, **kw)
-    return cuda_cost_wta(depths, *args, **kw)
+    with trace("twoview_cost"):
+        if volume:
+            return depths, cuda_cost_volume(*args, **kw)
+        return cuda_cost_wta(depths, *args, **kw)
 
 
 def _build_cost_fn(rgb_ref, gray_ref, mask_ref, gray_oth, mask_oth,
@@ -319,32 +323,35 @@ def _reproject(depth_a, depth_b, cam_a: Camera, cam_b: Camera, image_scale,
     depth_a's first row when it is a row block."""
     h, w = depth_a.shape
     hb, wb = depth_b.shape
-    ray_o, ray_d = pixel_rays(cam_a, h, w, image_scale, dtype=depth_a.dtype,
-                              row0=row0, **kw)
-    _, na = principal_ray(cam_a)
-    _, nb = principal_ray(cam_b)
+    with trace("xc_project"):
+        ray_o, ray_d = pixel_rays(cam_a, h, w, image_scale,
+                                  dtype=depth_a.dtype, row0=row0, **kw)
+        _, na = principal_ray(cam_a)
+        _, nb = principal_ray(cam_b)
 
-    usable = torch.isfinite(depth_a)
-    if nonneg:
-        usable &= depth_a >= 0
-    p1, v1 = point_from_depth(ray_o, ray_d, cam_a.C, na,
-                              torch.where(usable, depth_a, 1.0))
-    xy_full, vproj = project(cam_b, p1, quartic_iters=30, **kw)
-    x2 = xy_full[..., 0] * image_scale
-    y2 = xy_full[..., 1] * image_scale
-    contains = (x2 >= 0) & (y2 >= 0) & (x2 < wb) & (y2 < hb)
-    odepth, ofinite, _ = cuda_sample_nearest(depth_b.contiguous()[None],
-                                             x2[None], y2[None])
-    odepth, ousable = odepth[0], ofinite[0]
-    if nonneg:
-        ousable &= odepth >= 0
+        usable = torch.isfinite(depth_a)
+        if nonneg:
+            usable &= depth_a >= 0
+        p1, v1 = point_from_depth(ray_o, ray_d, cam_a.C, na,
+                                  torch.where(usable, depth_a, 1.0))
+        xy_full, vproj = project(cam_b, p1, quartic_iters=30, **kw)
+        x2 = xy_full[..., 0] * image_scale
+        y2 = xy_full[..., 1] * image_scale
+        contains = (x2 >= 0) & (y2 >= 0) & (x2 < wb) & (y2 < hb)
+    with trace("xc_sample"):
+        odepth, ofinite, _ = cuda_sample_nearest(depth_b.contiguous()[None],
+                                                 x2[None], y2[None])
+        odepth, ousable = odepth[0], ofinite[0]
+        if nonneg:
+            ousable &= odepth >= 0
 
-    # the reference unprojects at the *float* scaled coords + 0.5
-    oxy = torch.stack([(x2 + 0.5) / image_scale, (y2 + 0.5) / image_scale],
-                      dim=-1)
-    ray2_o, ray2_d = unproject(cam_b, oxy, **kw)
-    p2, v2 = point_from_depth(ray2_o, ray2_d, cam_b.C, nb,
-                              torch.where(ousable, odepth, 1.0))
+    with trace("xc_unproject"):
+        # the reference unprojects at the *float* scaled coords + 0.5
+        oxy = torch.stack([(x2 + 0.5) / image_scale,
+                           (y2 + 0.5) / image_scale], dim=-1)
+        ray2_o, ray2_d = unproject(cam_b, oxy, **kw)
+        p2, v2 = point_from_depth(ray2_o, ray2_d, cam_b.C, nb,
+                                  torch.where(ousable, odepth, 1.0))
     return usable, p1, v1, vproj & contains & ousable, p2, v2
 
 
@@ -413,12 +420,13 @@ def cross_check_pair(depth_l, depth_r, cam_l: Camera, cam_r: Camera,
                      cfg: TwoViewConfig, **kw):
     """Symmetric cross-check in the reference's sequential order: the right
     pass sees the already-invalidated left map."""
-    depth_l2 = cross_check_direction(depth_l, depth_r, cam_l, cam_r,
-                                     cfg.image_scale,
-                                     cfg.inconsistency_thresh, **kw)
-    depth_r2 = cross_check_direction(depth_r, depth_l2, cam_r, cam_l,
-                                     cfg.image_scale,
-                                     cfg.inconsistency_thresh, **kw)
+    with trace("cross_check_pair"):
+        depth_l2 = cross_check_direction(depth_l, depth_r, cam_l, cam_r,
+                                         cfg.image_scale,
+                                         cfg.inconsistency_thresh, **kw)
+        depth_r2 = cross_check_direction(depth_r, depth_l2, cam_r, cam_l,
+                                         cfg.image_scale,
+                                         cfg.inconsistency_thresh, **kw)
     return depth_l2, depth_r2
 
 
@@ -435,6 +443,7 @@ def host_stages(cam_a: Camera, cam_b: Camera, enable_refraction=True,
             _host_distorted(cam_a) or _host_distorted(cam_b)))
 
 
+@in_request
 def compute_depth_maps(rgb_l, mask_l, rgb_r, mask_r, cam_l: Camera,
                        cam_r: Camera, cfg: TwoViewConfig, *,
                        cross_check: bool = True,
@@ -450,18 +459,21 @@ def compute_depth_maps(rgb_l, mask_l, rgb_r, mask_r, cam_l: Camera,
     another); ``use_mrf`` as in ``compute_depth_map_oneview``."""
     method = resolve_method(method)
     dev = resolve_device(device)
-    rgb_l = torch.as_tensor(rgb_l, dtype=dtype, device=dev)
-    rgb_r = torch.as_tensor(rgb_r, dtype=dtype, device=dev)
-    mask_l = torch.as_tensor(mask_l, dtype=torch.bool, device=dev)
-    mask_r = torch.as_tensor(mask_r, dtype=torch.bool, device=dev)
-    gray_l = 0.11 * rgb_l[..., 0] + 0.59 * rgb_l[..., 1] + 0.3 * rgb_l[..., 2]
-    gray_r = 0.11 * rgb_r[..., 0] + 0.59 * rgb_r[..., 1] + 0.3 * rgb_r[..., 2]
-    cam_l = cam_l.to(dev, dtype)
-    cam_r = cam_r.to(dev, dtype)
-    kw = host_stages(cam_l, cam_r, enable_refraction, enable_distortion)
+    with trace("twoview_prepare"):
+        rgb_l = torch.as_tensor(rgb_l, dtype=dtype, device=dev)
+        rgb_r = torch.as_tensor(rgb_r, dtype=dtype, device=dev)
+        mask_l = torch.as_tensor(mask_l, dtype=torch.bool, device=dev)
+        mask_r = torch.as_tensor(mask_r, dtype=torch.bool, device=dev)
+        gray_l = (0.11 * rgb_l[..., 0] + 0.59 * rgb_l[..., 1]
+                  + 0.3 * rgb_l[..., 2])
+        gray_r = (0.11 * rgb_r[..., 0] + 0.59 * rgb_r[..., 1]
+                  + 0.3 * rgb_r[..., 2])
+        cam_l = cam_l.to(dev, dtype)
+        cam_r = cam_r.to(dev, dtype)
+        kw = host_stages(cam_l, cam_r, enable_refraction, enable_distortion)
 
-    # stage timers, as the JAX package's (on CUDA they time the host's
-    # dispatch; runtime.trace.device_trace gives the device's time)
+    # stage spans, as the JAX package's stage timers (on the host's clock;
+    # on CUDA each also carries its CUDA-event time, the stage's device_ms)
     with trace("twoview/left"):
         depth_l = compute_depth_map_oneview(
             rgb_l, gray_l, mask_l, gray_r, mask_r, cam_l, cam_r, cfg,

@@ -187,8 +187,9 @@ def test_mvs_resume_equals_fresh_run(tmp_path, use_mrf):
                            view_ids=ids, device=CPU)
     assert all(ck.has(v, expect_shape=(32, 40)) for v in ids)
     ttrace.reset()
-    resumed = mvs_depth_maps(rgbs, masks, cams, cfg, checkpoint=ck,
-                             view_ids=ids, device=CPU)
+    with ttrace.switched_on():
+        resumed = mvs_depth_maps(rgbs, masks, cams, cfg, checkpoint=ck,
+                                 view_ids=ids, device=CPU)
     stages = ttrace.report()["stages"]
     assert not any("initial_estimate" in k for k in stages)
     assert "mvs/cross_check" in stages
